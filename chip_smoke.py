@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``tpuseg_torch/kernels/csrc`` with
-``nvcc`` (sm_90a), then:
+Builds the port's CUDA kernels (``ir_chain``, ``masked_softmax``) from
+``tpuseg_torch/kernels/csrc`` with ``nvcc`` (sm_90a), then:
 
 1. holds the ``ir_chain`` kernel against its plain PyTorch version at the
    five main-path shapes (decode batch 128 = 32 images x 4 glimpses), in
@@ -19,7 +19,24 @@ Builds the port's CUDA kernels from ``tpuseg_torch/kernels/csrc`` with
    kernel launch counter reset just before and read just after: the chain
    must have run 5 levels x 4 blocks x the rounds run; prints img/s and
    SBD / |DiC| / FG dice against the synthetic ground truth, bf16-vs-f32
-   count agreement, and the same pass without the per-round done-sync.
+   count agreement, and the same pass without the per-round done-sync;
+4. holds the ``masked_softmax`` kernels, forward and backward, against
+   their plain PyTorch version at ``(B, N, HW)`` = (2, 32, 65536) and
+   (8, 32, 65536) with the instance masks of synthetic scenes (empty
+   slots, sizes that vary) and at an odd ``HW``, and times them beside the
+   plain version, ``torch.softmax`` on pre-masked logits and the bytes
+   bound;
+5. runs two float32 train steps at full width (B=2, deterministic
+   glimpses, no dropout) on the card (kernels) and on the CPU (plain
+   versions), each from equal weights: glimpse points equal, metrics
+   within 1e-3, parameters close;
+6. drives the training main path (``fit``: the full-width CVPPP model,
+   B=8, bfloat16 autocast, sampling and dropout on, a fixed seed) for one
+   epoch of 10 steps and one validation batch after 2 warm-up steps, with
+   the launch counters reset just before and read just after: the
+   ``masked_softmax`` forward must have launched once per train and
+   validation step, the backward once per train step, and ``ir_chain`` in
+   the validation decode; prints steps/s, peak memory and a breakdown.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises: the
@@ -156,6 +173,384 @@ def phase_kernel_vs_plain(model, dev):
         del x32, s32
     torch.cuda.empty_cache()
     return rows, max_abs_f32, max_rel_bf16
+
+
+def softmax_bound_ms(b, n, hw):
+    """Bytes bounds (forward, backward) in ms: each input read once, each
+    output written once, at the card's memory rate.  Forward reads e and
+    the float32 mask and writes p; backward reads p and g and writes de."""
+    fwd = b * hw * 4 + b * n * hw * 8
+    bwd = 2 * b * n * hw * 4 + b * hw * 4
+    return 1e3 * fwd / PEAK_BYTES, 1e3 * bwd / PEAK_BYTES
+
+
+def phase_masked_softmax(dev):
+    """masked_softmax kernels vs plain at the training path's shapes."""
+    import torch
+
+    from tpuseg_torch.data.synthetic import make_batch
+    from tpuseg_torch.kernels.masked_softmax import (
+        masked_softmax, masked_softmax_backward,
+        masked_softmax_backward_plain, masked_softmax_plain,
+    )
+
+    rows, max_p_err, max_de_rel = [], 0.0, 0.0
+    rng = np.random.default_rng(11)
+    g_cpu = torch.Generator(device="cpu").manual_seed(1)
+    for b, side in ((2, 256), (8, 256), (2, 255)):
+        batch = make_batch(rng, b, 256, 256, 32, hard=True)
+        ins = torch.from_numpy(batch["ins_masks"][:, :side, :side])
+        n, hw = ins.shape[-1], side * side
+        mask = ins.permute(0, 3, 1, 2).reshape(b, n, hw).contiguous().to(dev)
+        empty = int((mask.sum(dim=-1) == 0).sum())
+        sem = (mask.sum(dim=1) > 0).float()
+        e = (3.0 * torch.randn(b, hw, generator=g_cpu)).to(dev) * sem
+        g = torch.randn(b, n, hw, generator=g_cpu).to(dev)
+        ek = e.clone().requires_grad_()
+        pk = masked_softmax(ek, mask)
+        (dk,) = torch.autograd.grad(pk, ek, g)
+        torch.cuda.synchronize()
+        ep = e.clone().requires_grad_()
+        pp = masked_softmax_plain(ep, mask)
+        (dp,) = torch.autograd.grad(pp, ep, g)
+        p_err = (pk - pp).abs().max().item()
+        de_err = (dk - dp).abs().max().item()
+        de_scale = dp.abs().max().item()
+        if not (torch.isfinite(pk).all() and torch.isfinite(dk).all()):
+            raise AssertionError("masked_softmax: non-finite output")
+        if not p_err <= 1e-6:
+            raise AssertionError(
+                f"masked_softmax ({b},{n},{hw}): max|p err| {p_err:.3e} > 1e-6")
+        if not de_err <= 1e-5 * de_scale:
+            raise AssertionError(
+                f"masked_softmax ({b},{n},{hw}): max|de err| {de_err:.3e} > "
+                f"1e-5 * max|de| {de_scale:.3e}")
+        max_p_err = max(max_p_err, p_err)
+        max_de_rel = max(max_de_rel, de_err / de_scale)
+        # timings
+        logits = torch.where(mask > 0, e[:, None, :],
+                             torch.full_like(e[:, None, :], -1e30))
+        with torch.no_grad():
+            pk_d = masked_softmax(e, mask)
+            f_ms = cuda_ms(lambda: masked_softmax(e, mask), 20)
+            pf_ms = cuda_ms(lambda: masked_softmax_plain(e, mask), 20)
+            lib_ms = cuda_ms(lambda: torch.softmax(logits, dim=-1), 20)
+            # the backward launches themselves (autograd's own host time
+            # per call would outlast two kernels this short)
+            b_ms = cuda_ms(lambda: masked_softmax_backward(pk_d, g), 20)
+            pb_ms = cuda_ms(lambda: masked_softmax_backward_plain(pk_d, g), 20)
+        bf, bb = softmax_bound_ms(b, n, hw)
+        rows.append({
+            "shape": [b, n, hw], "empty_instances": empty,
+            "forward_ms": f_ms, "backward_ms": b_ms,
+            "plain_forward_ms": pf_ms, "plain_backward_ms": pb_ms,
+            "torch_softmax_ms": lib_ms, "bound_forward_ms": bf,
+            "bound_backward_ms": bb,
+        })
+        log(f"  masked_softmax {rows[-1]['shape']} ({empty} empty instances):"
+            f" forward {f_ms:.3f} ms (plain {pf_ms:.3f}, torch.softmax on "
+            f"masked logits {lib_ms:.3f}, bound {bf:.4f}), backward "
+            f"{b_ms:.3f} ms (plain {pb_ms:.3f}, bound {bb:.4f})")
+        del logits, pk_d, g, e, mask
+    torch.cuda.empty_cache()
+    return rows, max_p_err, max_de_rel
+
+
+def rebuild(cfg, model, **decoder_kw):
+    """(cfg with the decoder options replaced, a fresh float32 ``ReSeg``
+    built for it holding ``model``'s weights)."""
+    import dataclasses
+
+    from tpuseg_torch.models import ReSeg
+
+    cfg = dataclasses.replace(
+        cfg, decoder=dataclasses.replace(cfg.decoder, **decoder_kw))
+    new = ReSeg(cfg)
+    new.load_state_dict(model.state_dict())
+    return cfg, new
+
+
+GLIMPSE_METRICS = ("ins_cost", "criterion", "ins_ce_loss", "ins_dice_loss",
+                   "cost", "grad_norm")
+
+
+def glimpse_tie(cfg, model_before, batch, point_a, point_b, slot):
+    """Largest relative gap between the attention mass of two candidate
+    glimpses, per sample, under the (CPU) model as it stood before the
+    step: ``argmax`` picks either of two pixels that tie."""
+    import torch
+
+    from tpuseg_torch.runtime.train import model_inputs
+
+    images, sem, ins, _ = model_inputs(batch, "cpu")
+    m = model_before.train()
+    with torch.no_grad():
+        x_dec, _, _ = m._backbone(images)
+        sem_mask = sem.argmax(dim=1, keepdim=True).float()
+        x_enc = m.ins_stem(x_dec)
+        p, _ = m.decoder.attend(m.decoder.s_sp(x_enc, sem_mask), sem_mask, ins)
+    alpha = p[:, slot].reshape(p.shape[0], -1)  # deterministic: slot k
+    a = alpha.gather(1, point_a[:, None])[:, 0]
+    b = alpha.gather(1, point_b[:, None])[:, 0]
+    return ((a - b).abs() / torch.maximum(a, b).clamp(min=1e-30)).max().item()
+
+
+def phase_train_f32(cfg, model, dev):
+    """Two float32 train steps, card (kernels) against CPU (plain).  Each
+    step starts from equal weights on both devices: step 0 from the
+    checkpoint, step 1 from the CPU's state after step 0, copied to the
+    card (parameters, statistics, optimizer slots).  Per step: the glimpse
+    points equal, every metric within 1e-3 (``grad_norm``, the norm of the
+    raw gradients, among them), and the parameters after the step by
+    quantiles: median within 5e-6, 99% of the elements within 5e-4, none
+    further apart than 6.4e-3.  Two pixels whose attention mass ties to
+    within 1e-3 may turn the ``argmax`` that picks a glimpse; then what
+    follows from the glimpse is not compared in that step.  Any other
+    difference raises."""
+    import torch
+
+    from tpuseg_torch.data.synthetic import make_batch
+    from tpuseg_torch.kernels.masked_softmax import masked_softmax
+    from tpuseg_torch.runtime.state import create_train_state
+    from tpuseg_torch.runtime.train import make_train_step
+
+    rng = np.random.default_rng(5)
+    batches = [make_batch(rng, 2, 256, 256, cfg.data.max_n_objects, hard=True)
+               for _ in range(2)]
+    side = {}
+    for name, device in (("cpu", "cpu"), ("card", dev)):
+        dcfg, m = rebuild(cfg, model, deterministic_glimpse=True,
+                          drop_rate=0.0)
+        state = create_train_state(dcfg, m, device=device)
+        side[name] = dict(model=m, state=state, step=make_train_step(dcfg, m),
+                          seconds=0.0)
+
+    def flat_params(m):
+        return torch.cat([p.detach().flatten().cpu() for p in m.parameters()])
+
+    ties, worst, worst_norm, stats = [], 0.0, 0.0, []
+    for i, b in enumerate(batches):
+        if i > 0:
+            side["card"]["state"].load_state_dict(
+                copy.deepcopy(side["cpu"]["state"].state_dict()))
+            if not torch.equal(flat_params(side["cpu"]["model"]),
+                               flat_params(side["card"]["model"])):
+                raise AssertionError("the card did not take the CPU's state")
+        before = copy.deepcopy(side["cpu"]["model"])
+        got = {}
+        for name, sd in side.items():
+            launches = masked_softmax.launches
+            t = time.perf_counter()
+            sd["state"], met = sd["step"](sd["state"], b, None)
+            got[name] = ({k: float(v) for k, v in met.items()},
+                         [p.cpu() for p in sd["model"].decoder.last_points])
+            sd["seconds"] += time.perf_counter() - t
+            want = 0 if name == "cpu" else 3  # 1 forward + 2 backward
+            if masked_softmax.launches - launches != want:
+                raise AssertionError(
+                    f"masked_softmax launches on {name}: "
+                    f"{masked_softmax.launches - launches}, want {want}")
+        (mc, pc), (mg, pg) = got["cpu"], got["card"]
+        tied = False
+        for slot, (a, c) in enumerate(zip(pc, pg)):
+            if not torch.equal(a, c):
+                gap = glimpse_tie(dcfg, before, b, a, c, slot)
+                log(f"  step {i} slot {slot}: glimpses cpu {a.tolist()} card "
+                    f"{c.tolist()} tie to {gap:.2e} in the attention map")
+                if not gap <= 1e-3:
+                    raise AssertionError(
+                        f"glimpse points differ without a tie: cpu "
+                        f"{a.tolist()} card {c.tolist()} (gap {gap:.2e})")
+                tied = True
+        if tied:
+            ties.append(i)
+        for k in mc:
+            if not (np.isfinite(mc[k]) and np.isfinite(mg[k])):
+                raise AssertionError(f"train metric {k} not finite")
+            if tied and k in GLIMPSE_METRICS:
+                continue
+            rel = abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6)
+            if k == "grad_norm":
+                worst_norm = max(worst_norm, rel)
+            else:
+                worst = max(worst, rel)
+            if not rel <= 1e-3:
+                raise AssertionError(
+                    f"step {i} metric {k}: card {mg[k]} cpu {mc[k]} "
+                    f"(rel {rel:.2e})")
+        diff = (flat_params(side["cpu"]["model"])
+                - flat_params(side["card"]["model"])).abs()
+        q = torch.quantile(diff[:: max(1, diff.numel() // 1_000_000)],
+                           torch.tensor([0.5, 0.99])).tolist()
+        stats.append((q[0], q[1], diff.max().item()))
+        # an Adadelta step moves an element by at most 3.2e-3 whatever the
+        # gradient's size and turns with its sign, so an element whose
+        # gradient is float noise around zero may end 6.4e-3 apart
+        if not tied and not (q[0] <= 5e-6 and q[1] <= 5e-4
+                             and stats[-1][2] <= 6.4e-3):
+            raise AssertionError(
+                f"parameters after step {i} differ: median {q[0]:.2e}, p99 "
+                f"{q[1]:.2e}, max {stats[-1][2]:.2e}")
+    per_step = "; ".join(
+        f"step {i} params |diff| median {a:.2e} p99 {b:.2e} max {c:.2e}"
+        for i, (a, b, c) in enumerate(stats))
+    log(f"phase train-f32 (256x256, B=2, 2 steps from equal weights): glimpse "
+        f"points {'equal' if not ties else f'tied in steps {ties}'}, worst "
+        f"metric rel diff {worst:.2e} (grad_norm {worst_norm:.2e}); "
+        f"{per_step}; last cost card {mg['cost']:.4f} cpu {mc['cost']:.4f}; "
+        f"cpu {side['cpu']['seconds']:.1f} s, card "
+        f"{side['card']['seconds']:.1f} s")
+    return {"worst_metric_rel": worst, "grad_norm_rel": worst_norm,
+            "param_diff_median": [s[0] for s in stats],
+            "param_diff_p99": [s[1] for s in stats],
+            "param_diff_max": [s[2] for s in stats], "tied_steps": ties}
+
+
+def phase_train_timed(cfg, model, dev, softmax_rows):
+    """The training main path: ``fit`` at full width, B=8, bf16 autocast."""
+    import tempfile
+
+    import torch
+
+    from tpuseg_torch.data.synthetic import make_batch
+    from tpuseg_torch.kernels.ir_chain import ir_chain
+    from tpuseg_torch.kernels.masked_softmax import (
+        BACKWARD_LAUNCHES, FORWARD_LAUNCHES, masked_softmax,
+    )
+    from tpuseg_torch.runtime import train as rt
+    from tpuseg_torch.runtime.loop import fit
+    from tpuseg_torch.runtime.state import create_train_state
+
+    B, n_warm, n_steps, n_val = 8, 2, 10, 1
+    assert not cfg.decoder.deterministic_glimpse and cfg.decoder.drop_rate > 0
+    assert cfg.decoder.remat and cfg.decoder.hoist_skips_train
+    rng = np.random.default_rng(13)
+    t0 = time.perf_counter()
+    batches = [make_batch(rng, B, 256, 256, cfg.data.max_n_objects, hard=True)
+               for _ in range(n_warm + n_steps + n_val)]
+    log(f"made {len(batches)} synthetic train batches of {B} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    warm, train_b = batches[:n_warm], batches[n_warm:n_warm + n_steps]
+    val_b = batches[n_warm + n_steps:]
+    m = copy.deepcopy(model)
+    state = create_train_state(cfg, m, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
+    dtype = torch.bfloat16
+    step = rt.make_train_step(cfg, m, dtype=dtype)
+    costs = []
+    for b in warm:  # cuDNN plans, allocator, kernel load
+        state, met = step(state, b, gen)
+        costs.append(float(met["cost"]))
+
+    # -- a timed loop of steps (host clock around synchronize)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    mets = []
+    for b in train_b:
+        state, met = step(state, b, gen)
+        mets.append(met)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    costs += [float(x["cost"]) for x in mets]
+    if not np.isfinite(costs).all():
+        raise AssertionError(f"non-finite training cost: {costs}")
+
+    # -- where a step's time goes: forward / backward / optimizer
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, 1e3 * (time.perf_counter() - t)
+
+    parts = {"forward": [], "backward": [], "optimizer": []}
+    for b in train_b[:3]:
+        m.train()
+        m.zero_grad(set_to_none=True)
+        (cost, _), f_ms = timed(lambda: rt._forward(
+            cfg, m, b, dev, dtype, gen, train=True))
+        _, b_ms = timed(cost.backward)
+        _, o_ms = timed(state.apply_gradients)
+        for k, v in zip(parts, (f_ms, b_ms, o_ms)):
+            parts[k].append(v)
+    parts = {k: float(np.median(v)) for k, v in parts.items()}
+
+    # -- the entry point, with the launch counters around it
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_fit_")
+    step0 = state.step
+    masked_softmax.launches = 0
+    masked_softmax.forward_launches = 0
+    masked_softmax.backward_launches = 0
+    ir_chain.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state = fit(cfg, m, state, lambda epoch: train_b, lambda epoch: val_b,
+                run_dir, n_epochs=1, generator=gen, dtype=dtype)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    counts = {
+        "forward": masked_softmax.forward_launches,
+        "backward": masked_softmax.backward_launches,
+        "total": masked_softmax.launches,
+        "ir_chain": ir_chain.launches,
+    }
+    want_f = FORWARD_LAUNCHES * (n_steps + n_val)
+    want_b = BACKWARD_LAUNCHES * n_steps
+    if state.step - step0 != n_steps:
+        raise AssertionError(f"fit took {state.step - step0} steps")
+    if counts["forward"] != want_f or counts["backward"] != want_b:
+        raise AssertionError(
+            f"masked_softmax launches {counts}: want forward {want_f} "
+            f"({n_steps} train + {n_val} validation steps), backward "
+            f"{want_b} ({BACKWARD_LAUNCHES} per train step)")
+    if counts["ir_chain"] <= 0 or counts["ir_chain"] % 20:
+        raise AssertionError(
+            f"ir_chain launches {counts['ir_chain']} in the validation "
+            f"decode: want a positive multiple of 5 levels x 4 blocks")
+    files = sorted(os.listdir(run_dir))
+    if not ({"training.log", "validation.log", "metrics.jsonl"} <= set(files)
+            and any(f.startswith("model_0_") for f in files)):
+        raise AssertionError(f"fit wrote {files}")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    for rec in recs:
+        bad = [k for k, v in rec.items()
+               if isinstance(v, float) and not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"fit logged non-finite {bad}: {rec}")
+    import shutil
+
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+    row8 = [r for r in softmax_rows if r["shape"][0] == B][0]
+    k_ms = row8["forward_ms"] + row8["backward_ms"]
+    ms_step = 1e3 * dt / n_steps
+    log(f"phase train-timed (256x256 full width, B={B}, bf16 autocast, "
+        f"sampling + dropout, remat): {n_steps / dt:.3f} steps/s, "
+        f"{ms_step:.1f} ms/step, {B * n_steps / dt:.2f} img/s, peak memory "
+        f"{peak / 2**30:.2f} GiB; cost first {costs[0]:.4f} last "
+        f"{costs[-1]:.4f}")
+    log(f"  step breakdown (median of 3, host clock around synchronize): "
+        f"forward {parts['forward']:.1f} ms, backward {parts['backward']:.1f}"
+        f" ms, optimizer {parts['optimizer']:.1f} ms; masked_softmax "
+        f"forward + backward {k_ms:.3f} ms = {100 * k_ms / ms_step:.2f}% of "
+        f"a step")
+    log(f"  fit (1 epoch: {n_steps} train steps + {n_val} validation batch + "
+        f"checkpoint): {fit_s:.1f} s; masked_softmax launches forward "
+        f"{counts['forward']} backward {counts['backward']}, ir_chain "
+        f"launches {counts['ir_chain']} (validation decode); val "
+        f"ins_dice_loss {recs[-1]['ins_dice_loss']:.4f}")
+    return {
+        "steps_per_s": n_steps / dt, "ms_per_step": ms_step,
+        "img_per_s": B * n_steps / dt, "peak_memory_gib": peak / 2**30,
+        "cost_first": costs[0], "cost_last": costs[-1],
+        "forward_ms": parts["forward"], "backward_ms": parts["backward"],
+        "optimizer_ms": parts["optimizer"],
+        "masked_softmax_share": k_ms / ms_step, "fit_seconds": fit_s,
+        "launches": counts,
+    }
 
 
 def make_images(n, seed):
@@ -335,7 +730,27 @@ def main() -> int:
         f"microbench {chain_round_ms:.1f} ms per round -> "
         f"{chain_round_ms * r1:.1f} ms")
 
+    del pred, p_f32, p_cpu, prep_out, x
+    torch.cuda.empty_cache()
+
+    # -- phase 5: masked_softmax kernels vs plain, forward and backward
+    t0 = time.perf_counter()
+    sm_rows, sm_p_err, sm_de_rel = phase_masked_softmax(dev)
+    log(f"phase masked-softmax-vs-plain: {time.perf_counter() - t0:.1f} s "
+        f"(max|p err| {sm_p_err:.3e}, max|de err| / max|de| {sm_de_rel:.3e})")
+
+    # -- phase 6: two f32 train steps, card vs CPU
+    t0 = time.perf_counter()
+    train_f32 = phase_train_f32(cfg, model, dev)
+    log(f"phase train-f32: {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 7: the training main path, timed
+    t0 = time.perf_counter()
+    train = phase_train_timed(cfg, model, dev, sm_rows)
+    log(f"phase train-timed: {time.perf_counter() - t0:.1f} s")
+
     summary = {
+        "train": train, "train_f32": train_f32,
         "img_per_s_bf16": len(imgs) / dt_main,
         "ms_per_batch_bf16": 1e3 * dt_main / len(batches),
         "img_per_s_f32": len(imgs) / dt_f32,
@@ -349,6 +764,8 @@ def main() -> int:
     }
     log("summary " + json.dumps(summary))
     log("ir_chain rows " + json.dumps(rows))
+    log("masked_softmax rows " + json.dumps(sm_rows))
+    sm8 = [r for r in sm_rows if r["shape"][0] == 8][0]
     kernels = {"kernels": [{
         "name": "ir_chain",
         "route": "cuda",
@@ -365,6 +782,31 @@ def main() -> int:
         "bound_by": "bytes" if sum(r["bytes_ms"] for r in path_rows)
         >= sum(r["ops_ms"] for r in path_rows) else "operations",
         "library_ms": None,
+        "launches_validation_decode": train["launches"]["ir_chain"],
+    }, {
+        "name": "masked_softmax",
+        "route": "cuda",
+        "source": "tpuseg_torch/kernels/csrc/masked_softmax.cu",
+        "replaces": "tpuseg/kernels/masked_softmax.py:38",
+        # forward + backward launches of the fit run (10 train steps + 1
+        # validation batch): 1 per forward, 2 per backward
+        "launches": train["launches"]["total"],
+        "launches_forward": train["launches"]["forward"],
+        "launches_backward": train["launches"]["backward"],
+        "checked": True,
+        "max_abs_err": sm_p_err,
+        "max_rel_err_backward": sm_de_rel,
+        # one train step's calls at the timed path's shape (8, 32, 65536):
+        # forward + backward; the library call is the forward alone
+        "ms": sm8["forward_ms"] + sm8["backward_ms"],
+        "forward_ms": sm8["forward_ms"],
+        "backward_ms": sm8["backward_ms"],
+        "plain_ms": sm8["plain_forward_ms"] + sm8["plain_backward_ms"],
+        "bound_ms": sm8["bound_forward_ms"] + sm8["bound_backward_ms"],
+        "bound_by": "bytes",
+        "library_ms": sm8["torch_softmax_ms"],
+        "library_call": "torch.softmax(logits, dim=-1) on already-masked "
+                        "(B, N, HW) logits, forward only",
     }]}
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

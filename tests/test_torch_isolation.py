@@ -21,7 +21,8 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(
     m for m in sys.modules
-    if m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "PIL", "tpuseg")
+    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
+                           "PIL", "tpuseg")
 )
 print(json.dumps({"imported": names, "bad": bad}))
 """
@@ -35,6 +36,11 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "tpuseg_torch.runtime.predict" in res["imported"]
     assert "tpuseg_torch.cli.pred_list" in res["imported"]
+    # the training slice's modules are walked too
+    for name in ("kernels.masked_softmax", "losses.dice", "losses.focal",
+                 "runtime.train", "runtime.state", "runtime.loop",
+                 "runtime.checkpoint", "runtime.metrics_log"):
+        assert f"tpuseg_torch.{name}" in res["imported"], name
     assert res["bad"] == []
 
 
@@ -55,3 +61,18 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--lst", "unused.txt", "--model", "unused.msgpack",
               "--dataset", "CVPPP"])
+    # the training entry point: the state is where the device is chosen
+    from tpuseg_torch.runtime.state import create_train_state
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_train_state(cvppp_config(), _Unused())
+
+
+def test_kernel_wrappers_do_not_fall_back_off_the_cpu():
+    """A wrapper takes its plain version only for a CPU tensor; any other
+    device launches the kernel or raises (here: a ``meta`` tensor)."""
+    from tpuseg_torch.kernels.masked_softmax import masked_softmax
+
+    with pytest.raises(ValueError, match="unsupported device"):
+        masked_softmax(torch.zeros(1, 8, device="meta"),
+                       torch.zeros(1, 2, 8, device="meta"))

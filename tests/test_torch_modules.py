@@ -142,12 +142,15 @@ def test_spatial_and_hard_attention_score():
     ha = jatt.HardAttention(d_k=12)
     v_ha, t_ha = _pair(ha, tatt.HardAttention(24, 12), want_s,
                        jnp.asarray(sem), jnp.asarray(sem), seed=5)
-    _, want_e = ha.apply(v_ha, want_s, jnp.asarray(sem), jnp.asarray(sem))
+    want_p, want_e = ha.apply(v_ha, want_s, jnp.asarray(sem), jnp.asarray(sem))
     with torch.no_grad():
         got_e = t_ha(_nchw(np.asarray(want_s)), _nchw(sem))
-        with pytest.raises(NotImplementedError):
-            t_ha(_nchw(np.asarray(want_s)), _nchw(sem), _nchw(sem))
+        # given instance masks, the per-instance distributions come too
+        got_p, got_e2 = t_ha(_nchw(np.asarray(want_s)), _nchw(sem), _nchw(sem))
     _close(_nhwc(got_e), want_e)
+    assert torch.equal(got_e, got_e2)
+    np.testing.assert_allclose(_nhwc(got_p), np.asarray(want_p), atol=1e-6,
+                               rtol=0)
 
 
 def test_prev_mask_gate_is_torch_bilinear_upsample():

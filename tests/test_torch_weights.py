@@ -16,7 +16,7 @@ from tpuseg_torch.utils.checkpoint_io import (
     load_stop_params,
     read_msgpack,
 )
-from tpuseg_torch.weights import from_flax, load_flax
+from tpuseg_torch.weights import from_flax, grads_to_flax, load_flax, to_flax
 
 CKPT = Path(__file__).resolve().parents[1] / "assets" / "synthetic_ckpt.msgpack"
 
@@ -54,6 +54,29 @@ def test_checkpoint_loads_every_leaf_into_reseg():
         "Conv_0"]["kernel"]
     got = model.decoder.bone.up_atten1.dil1a.Conv_0.weight.detach().numpy()
     np.testing.assert_array_equal(got[:, :, 0, 0], w[0, 0].T)
+
+
+def test_to_flax_is_the_inverse_of_load_flax():
+    """``to_flax(load_flax(m, v))`` equals ``v`` leaf for leaf (names,
+    shapes, dtypes, bytes), and ``grads_to_flax`` gives the ``params``
+    tree's structure with the same layout map."""
+    ckpt = read_msgpack(CKPT)
+    model = load_flax(ReSeg(cvppp_config()), ckpt)
+    want, got = dict(_leaves(ckpt)), dict(_leaves(to_flax(model)))
+    assert got.keys() == want.keys() and len(got) == 757
+    for path, w in want.items():
+        g = got[path]
+        assert g.shape == w.shape and g.dtype == w.dtype, path
+        assert g.tobytes() == np.ascontiguousarray(w).tobytes(), path
+    up = model.decoder.bone.up_atten1.up.weight  # ConvTranspose (in, out, kh, kw)
+    up.grad = torch.arange(up.numel(), dtype=torch.float32).reshape(up.shape)
+    grads = dict(_leaves(grads_to_flax(model)))
+    assert grads.keys() == dict(_leaves(ckpt["params"])).keys()
+    g = grads[("decoder", "glimpse", "bone", "up_atten1", "up", "kernel")]
+    np.testing.assert_array_equal(
+        g, up.grad.numpy()[:, :, ::-1, ::-1].transpose(2, 3, 0, 1))
+    assert not grads[("base", "inc", "InvertedV1Residual_0", "Conv_0",
+                      "kernel")].any()  # no gradient yet: zeros
 
 
 def test_adapt_cfg_and_stop_params_match_jax_helpers():

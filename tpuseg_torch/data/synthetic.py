@@ -86,3 +86,26 @@ def label_map(instances: np.ndarray) -> np.ndarray:
     for j in range(instances.shape[-1]):
         label[instances[..., j] > 0] = j + 1
     return label
+
+
+def make_batch(rng: np.random.Generator, batch_size: int, height: int = 256,
+               width: int = 256, max_n_objects: int = 32,
+               hard: bool = False) -> dict:
+    """One training batch of synthetic scenes in the train step's layout:
+    ``images (B, H, W, 3)`` uint8, ``sem_onehot (B, H, W, 2)`` float32,
+    ``ins_masks (B, H, W, max_n_objects)`` float32 (zero-padded slots),
+    ``n_objects (B,)`` int32."""
+    images = np.zeros((batch_size, height, width, 3), np.uint8)
+    sem = np.zeros((batch_size, height, width, 2), np.float32)
+    ins = np.zeros((batch_size, height, width, max_n_objects), np.float32)
+    n_objects = np.zeros((batch_size,), np.int32)
+    for i in range(batch_size):
+        rgb, semantic, instance, n = make_scene(
+            rng, height, width, max_leaves=min(12, max_n_objects), hard=hard)
+        n = min(n, max_n_objects)
+        images[i] = rgb
+        sem[i] = np.eye(2, dtype=np.float32)[semantic]
+        ins[i, :, :, :n] = instance[..., :n]
+        n_objects[i] = n
+    return {"images": images, "sem_onehot": sem, "ins_masks": ins,
+            "n_objects": n_objects}

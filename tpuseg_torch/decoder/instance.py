@@ -1,8 +1,16 @@
-"""Iterative hard-attention instance decoder, extraction path (port of
-``tpuseg/decoder/instance.py``: ``_attend``, ``_prep``, ``_stop_scalars``,
-``_disk``, the round body of ``_extract_step`` and ``_extract_rounds``).
+"""Iterative hard-attention instance decoder (port of
+``tpuseg/decoder/instance.py``).
 
-Each extraction round picks ``G`` disk-suppressed attention peaks in the
+The loss path (``InstanceDecoder.loss``, the JAX ``_loss`` and
+``_loss_step``): spatial attention over the instance features, one
+hard-attention distribution per instance, then the glimpse loop: take one
+(randomly ordered) instance per sample, sample a point from its
+distribution, decode that instance's mask through the 5-level pyramid, and
+add up the pyramid focal + dice losses, a REINFORCE term with an EMA
+baseline and an entropy regulariser.  The JAX ``nn.scan`` over static
+glimpse slots is a Python loop here.
+
+The extraction path (``prep`` and ``extract_rounds``): each extraction round picks ``G`` disk-suppressed attention peaks in the
 remaining foreground, decodes all ``G`` masks in one pyramid pass with the
 glimpses folded into the batch, and carves them out in peak order (an
 earlier peak wins overlaps).  The JAX ``lax.scan`` over rounds becomes a
@@ -12,23 +20,84 @@ syncing — a round in which every sample is done changes nothing).  Tie
 rules follow the JAX package: ``argmax`` takes the first index and
 ``round`` is half-to-even.
 
-The training path (per-instance softmax, glimpse sampling, losses) comes
-with the training slice.
+Tensors are NCHW: masks and targets ``(B, 1, h, w)``, logits
+``(B, 2, h, w)``, instance masks ``(B, N, H, W)``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from tpuseg_torch.configs import DecoderConfig
 from tpuseg_torch.decoder.pyramid import AttenDecoder
+from tpuseg_torch.losses.dice import dice_loss
+from tpuseg_torch.losses.focal import focal_loss, softmax_cross_entropy
 from tpuseg_torch.nn.attention import HardAttention, SpatialAttention
+from tpuseg_torch.nn.blocks import running_stats
 
 _NEG_INF = -1e30
+
+
+# --------------------------------------------------------------------------
+# loss pieces (pure functions of cfg + tensors)
+# --------------------------------------------------------------------------
+
+
+def _flat2(logits: torch.Tensor) -> torch.Tensor:
+    """(B, 2, h, w) -> (B*h*w, 2), samples in order."""
+    return logits.permute(0, 2, 3, 1).reshape(-1, 2)
+
+
+def _two_class(target01: torch.Tensor) -> torch.Tensor:
+    return torch.cat([1.0 - target01, target01], dim=1)
+
+
+def mask_loss(cfg: DecoderConfig, pred_logits, target01, alpha: float = 0.0,
+              map_weight=0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-level ``ce_weight * focal + dice(time=1)``: ((B,) multi loss,
+    (B,) dice loss).  pred_logits (B, 2, h, w), target01 (B, 1, h, w)."""
+    b = pred_logits.shape[0]
+    t = target01.to(pred_logits.dtype)
+    d = dice_loss(pred_logits, _two_class(t), optimize_bg=False,
+                  smooth=cfg.smooth, reduce=False, time=1,
+                  map_weight=map_weight)
+    ce = focal_loss(_flat2(pred_logits), t.reshape(-1), gamma=cfg.focal_gamma,
+                    alpha=alpha, map_weight=map_weight)
+    return cfg.ce_weight * ce.reshape(b, -1).mean(dim=1) + d, d
+
+
+def pred_loss(cfg: DecoderConfig, preds, targets):
+    """Pyramid-weighted mask loss: ((B,) total, (B,) dice of the finest
+    level)."""
+    total, d_last = 0.0, None
+    for p, t, w in zip(preds, targets, cfg.pyramid_weights):
+        multi, d_last = mask_loss(cfg, p, t)
+        total = total + multi * w
+    return total, d_last
+
+
+def alpha_entropy(cfg: DecoderConfig, alpha, mask) -> torch.Tensor:
+    """Entropy regulariser over the glimpse distribution restricted to the
+    instance's pixels."""
+    a = alpha.clamp(cfg.entropy_clamp_lo, cfg.entropy_clamp_hi)
+    return (-a * torch.log(a) * cfg.entropy_normal * mask).sum()
+
+
+def evaluate_masks(pred_last, target_last, time: int = 1,
+                   smooth: float = 1.0):
+    """Eval CE (scalar) and per-sample dice (B,) of the finest level; the
+    caller detaches as needed."""
+    t = target_last.to(pred_last.dtype)
+    ce = softmax_cross_entropy(_flat2(pred_last),
+                               target_last.reshape(-1).long())
+    d = dice_loss(pred_last, _two_class(t), optimize_bg=False, smooth=smooth,
+                  reduce=False, time=time)
+    return ce, d
 
 
 def stop_scalars(cfg: DecoderConfig, stop_params: Optional[Sequence] = None):
@@ -92,6 +161,188 @@ class InstanceDecoder(nn.Module):
         """Merged hard-attention score (B, 1, H, W), float32."""
         sem = sem_mask.to(encode.dtype)
         return self.attend(self.s_sp(encode, sem), sem)
+
+    # ---------------- training / eval loss ----------------
+
+    def _decode_train(self, s, sem_mask, gold, feats, skips_t, generator):
+        """One train-mode pyramid decode -> (per-level targets, per-level
+        logits).  Under ``cfg.remat`` the decode is checkpointed: its
+        activations are recomputed in the backward pass instead of being
+        kept across the glimpse loop.  The dropout multipliers are drawn
+        here, outside the checkpoint, so both runs see the same ones, and
+        the recomputation leaves the BatchNorm running statistics alone."""
+        bone = self.bone
+        b, dev = s.shape[0], s.device
+        drops = bone.draw_dropout(b, generator, dev, "decode")
+        skip_drops = None
+        if skips_t is None:
+            skip_drops = bone.draw_dropout(b, generator, dev, "skips")
+        runs = [0]
+
+        def run():
+            with running_stats(frozen=runs[0] > 0):
+                runs[0] += 1
+                targets, preds = bone(s, feats, sem_mask, gold,
+                                      skips_t=skips_t, drops=drops,
+                                      skip_drops=skip_drops)
+            return tuple(targets), tuple(preds)
+
+        if self.cfg.remat and torch.is_grad_enabled():
+            # nothing inside draws from the global random state
+            return checkpoint(run, use_reentrant=False,
+                              preserve_rng_state=False)
+        return run()
+
+    def loss(self, encode, sem_mask, target, n_ins, feats,
+             generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
+        """Glimpse-loop loss; train or eval by ``self.training``.
+
+        encode (B, d_model, H, W) instance features; sem_mask (B, 1, H, W)
+        semantic foreground; target (B, N, H, W) padded instance masks;
+        n_ins (B,) valid instance counts; feats: UNet skips x1..x5.
+        ``generator`` (on the tensors' device) drives the instance order,
+        the glimpse sampling and the dropout; it may be None only where
+        nothing is drawn (eval under ``deterministic_glimpse``).
+
+        Training runs all ``cfg.max_iter`` glimpse slots: a slot beyond
+        ``maxiter = min(max_iter, max(min(n_ins), 1))`` still decodes (its
+        BatchNorm statistics and random draws count) and only its loss
+        terms and baseline update are weighted by 0.  Eval runs
+        ``max(min(n_ins), 1)`` glimpses (one host sync to learn it).
+
+        Returns dict(loss, criterion, ins_ce_loss, ins_dice_loss), plus the
+        per-slot ``debug_*`` terms under ``cfg.debug_loss_terms``."""
+        cfg = self.cfg
+        train = self.training
+        b, n, h, w = target.shape
+        hw = h * w
+        dev = encode.device
+        f32 = torch.float32
+        sem = sem_mask.to(encode.dtype)
+        pro_split, pro_merge = self.attend(self.s_sp(encode, sem), sem, target)
+        del pro_merge  # feeds only the dormant PN losses of the reference
+
+        n_min = n_ins.min().clamp(min=1)
+        if train:
+            k_static = int(cfg.max_iter)
+            maxiter = n_min.clamp(max=k_static)
+            n_run = k_static
+        else:
+            k_static = self.max_n_objects
+            maxiter = n_min
+            n_run = min(int(n_min), k_static)
+
+        # instance order: uniform keys, invalid slots pushed to the end
+        if cfg.deterministic_glimpse:
+            perm = torch.arange(n, device=dev)[None].expand(b, n)
+        else:
+            keys = torch.rand((b, n), generator=generator, device=dev)
+            keys = keys + (torch.arange(n, device=dev)[None]
+                           >= n_ins[:, None]) * 1e9
+            perm = keys.argsort(dim=1)
+
+        bone = self.bone
+        skips_t = None
+        if not train:
+            skips_t = bone.transform_skips(feats)
+        elif cfg.hoist_skips_train:
+            # the skip transforms do not depend on the glimpse: once per
+            # step, and their one running-statistics update stands for the
+            # k_static the loop would have made
+            with running_stats(repeats=k_static):
+                skips_t = bone.transform_skips(
+                    feats, bone.draw_dropout(b, generator, dev, "skips"))
+
+        zero = torch.zeros((), dtype=f32, device=dev)
+        tot = {"loss": zero, "criterion": zero, "ce": zero, "dice": zero}
+        baseline = self.baseline.detach().to(f32)
+        rows = torch.arange(b, device=dev)
+        debug = {"loss1": [], "loss2": [], "hent": []}
+        points = []
+        for k in range(n_run):
+            valid = (k < maxiter).to(f32)
+            idx = perm[:, k]
+            gold = target[rows, idx][:, None].to(f32)        # (B, 1, H, W)
+            alpha = pro_split[rows, idx].reshape(b, hw)
+            alpha_sg = alpha.detach()
+            if train and not cfg.deterministic_glimpse:
+                # an instance with no mass draws uniformly
+                any_mass = alpha_sg.sum(dim=1, keepdim=True) > 0
+                weights = torch.where(any_mass, alpha_sg,
+                                      torch.ones_like(alpha_sg))
+                s = torch.multinomial(weights, 1, generator=generator)[:, 0]
+            else:
+                s = alpha_sg.argmax(dim=1)
+            points.append(s)
+
+            if train:
+                targets, preds = self._decode_train(
+                    s, sem_mask, gold, feats, skips_t, generator)
+            else:
+                targets, preds = bone.decode(s, skips_t, sem_mask, gold)
+            preds = [p.to(f32) for p in preds]
+            pred_last, target_last = preds[-1], targets[-1]
+            with torch.no_grad():
+                eval_ce, eval_dice = evaluate_masks(
+                    pred_last, target_last, time=1, smooth=cfg.smooth)
+
+            if train:
+                loss_pred, dice_l = pred_loss(cfg, preds, targets)
+                ce_loss = eval_ce
+                # REINFORCE with an EMA baseline
+                log_p_y = -eval_dice
+                m = cfg.baseline_momentum
+                baseline_new = m * baseline + (1.0 - m) * log_p_y.mean()
+                baseline = torch.where(valid > 0, baseline_new, baseline)
+                log_p_s_a = alpha.gather(1, s[:, None])[:, 0]
+                loss_2 = -(log_p_y - baseline) * torch.log(log_p_s_a + 1e-30)
+                criterion = ce_loss + dice_l.detach().sum()
+                hent = alpha_entropy(cfg, alpha, target_last.reshape(b, -1))
+                loss_vec = cfg.lambda_l * loss_pred + cfg.lambda_r * loss_2
+                loss = cfg.lambda_ins * (
+                    loss_vec.sum() - cfg.lambda_e * hent) / b
+                dice_metric = dice_l.mean()
+                if cfg.debug_loss_terms:
+                    debug["loss1"].append(cfg.lambda_l * loss_pred)
+                    debug["loss2"].append(cfg.lambda_r * loss_2)
+                    debug["hent"].append(cfg.lambda_e * hent)
+            else:
+                with torch.no_grad():
+                    _, eval_dice2 = evaluate_masks(
+                        pred_last, target_last, time=2, smooth=cfg.smooth)
+                loss = eval_dice2.mean()
+                criterion = eval_ce + eval_dice.mean()
+                ce_loss = eval_ce
+                dice_metric = eval_dice.mean()
+
+            tot = {
+                "loss": tot["loss"] + valid * loss,
+                "criterion": tot["criterion"] + valid * criterion,
+                "ce": tot["ce"] + valid * ce_loss,
+                "dice": tot["dice"] + valid * dice_metric,
+            }
+        if train:
+            with torch.no_grad():
+                self.baseline.copy_(baseline)
+        self.last_points = points  # the glimpses of this call, (B,) each
+
+        denom = maxiter.to(f32)
+        out = {
+            "loss": tot["loss"] / denom,
+            "criterion": tot["criterion"] / denom,
+            "ins_ce_loss": tot["ce"] / denom,
+            "ins_dice_loss": tot["dice"] / denom,
+        }
+        if cfg.debug_loss_terms:
+            if train:
+                out.update({f"debug_{name}": torch.stack(v)
+                            for name, v in debug.items()})
+            else:
+                out["debug_loss1"] = torch.zeros((k_static, b), device=dev)
+                out["debug_loss2"] = torch.zeros((k_static, b), device=dev)
+                out["debug_hent"] = torch.zeros((k_static,), device=dev)
+        return out
 
     def prep(self, encode, sem_mask, feats):
         """Glimpse-independent half of extraction, once per batch: the

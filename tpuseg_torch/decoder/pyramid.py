@@ -1,12 +1,18 @@
-"""Point-conditioned 5-level pyramid mask decoder, extraction path (port of
+"""Point-conditioned 5-level pyramid mask decoder (port of
 ``tpuseg/decoder/pyramid.py``).
 
-Eval-only: the glimpse-independent half (skip transforms and the conv1
-partials of the skip + semantic-mask channels) runs once per batch; each
-extraction round decodes only the per-glimpse channels at the folded
-``B * group`` batch.  In every level the four ``dil*`` blocks run as ONE
-``ir_chain`` call (the Hopper kernel on the card), with ``x1u`` as the
-mid-chain skip on every level but the first.
+Two ways through a level.  The extraction path (eval only): the
+glimpse-independent half (skip transforms and the conv1 partials of the
+skip + semantic-mask channels) runs once per batch; each extraction round
+decodes only the per-glimpse channels at the folded ``B * group`` batch
+(``call_split``).  The loss path (``forward`` / ``decode``, train and
+eval): one glimpse per sample on the full canvas, with the pooled gold
+masks per level as targets and, in training, channel dropout.
+
+In eval mode the four ``dil*`` blocks of a level run as ONE ``ir_chain``
+call (the Hopper kernel on the card), with ``x1u`` as the mid-chain skip on
+every level but the first.  In train mode their BatchNorms use batch
+statistics and cannot be folded, so the blocks run as modules.
 
 Tensors are NCHW; the chain's activations are ``channels_last`` so the
 kernel gets a contiguous NHWC view without a copy.  Window crops and
@@ -162,8 +168,20 @@ def _prev_mask_gate(pred_logits_prev, hw) -> torch.Tensor:
     return torch.softmax(m, dim=1)[:, 1:2]
 
 
+def channel_dropout_mask(b: int, c: int, rate: float, generator,
+                         device) -> Optional[torch.Tensor]:
+    """(b, c, 1, 1) multiplier of a channel dropout (one draw per sample and
+    channel, shared over the pixels): 0 or ``1 / (1 - rate)``.  None when
+    nothing is dropped."""
+    if not rate > 0:
+        return None
+    keep = 1.0 - rate
+    kept = torch.rand((b, c, 1, 1), generator=generator, device=device) < keep
+    return kept.to(torch.float32) / keep
+
+
 class _UpAttenLevel(nn.Module):
-    """One pyramid level (reference ``UpAttenLayer``), eval-only."""
+    """One pyramid level (reference ``UpAttenLayer``)."""
 
     def __init__(self, skip_ch: int, out_ch: int, prev_ch: int, factor: int,
                  is_first: bool, use_mask: bool = True,
@@ -208,9 +226,17 @@ class _UpAttenLevel(nn.Module):
             self.fold(dtype)
         return self._folded
 
-    def transform_skip(self, x_skip):
-        """Glimpse-independent skip transform (``cross1 -> cross2``)."""
-        return self.cross2(self.cross1(x_skip))
+    def train(self, mode: bool = True):
+        self._folded = None  # the weights are about to move: fold anew
+        return super().train(mode)
+
+    def transform_skip(self, x_skip, drop=None):
+        """Glimpse-independent skip transform (``cross1 -> cross2``) with
+        the channel-dropout multiplier ``drop`` between the two."""
+        y = self.cross1(x_skip)
+        if drop is not None:
+            y = y * drop.to(y.dtype)
+        return self.cross2(y)
 
     def conv1_const(self, skip_t, mask_all) -> torch.Tensor:
         """Glimpse-independent conv1 partial (B, out_ch, h, w) with the BN
@@ -241,8 +267,37 @@ class _UpAttenLevel(nn.Module):
     def _chain(self, x, x1u):
         params = self._params(x.dtype)["chain"]
         nhwc = lambda t: t.permute(0, 2, 3, 1).contiguous()  # noqa: E731
-        y = ir_chain(nhwc(x), None if x1u is None else nhwc(x1u), *params)
+        y = ir_chain(nhwc(x), None if x1u is None else nhwc(x1u.to(x.dtype)),
+                     *params)
         return y.permute(0, 3, 1, 2)
+
+    def forward(self, x_prev, skip_t, point_flat, mask_pre, mask_all,
+                drops=(None, None)):
+        """The level on the full canvas, one glimpse per sample.  skip_t:
+        this level's ``transform_skip`` output; mask_all: the semantic mask
+        pooled to the level; ``drops``: the two channel-dropout multipliers
+        (after conv1 and before ``dil2a``), None in eval mode."""
+        h, w = skip_t.shape[2:]
+        full = (h * self.factor, w * self.factor)
+        if self.is_first:
+            x, x1u = skip_t, None
+        else:
+            x1u = self.up(x_prev)
+            gate = 1.0 if mask_pre is None else _prev_mask_gate(mask_pre, (h, w))
+            x = torch.cat([skip_t, (x1u * gate).to(skip_t.dtype)], dim=1)
+        pos = point_position_planes(point_flat, full, (h, w))
+        x = torch.cat([x, mask_all.to(x.dtype), pos.to(x.dtype)], dim=1)
+        x = self.conv1(x)
+        if not self.training:
+            return self._chain(x.contiguous(memory_format=_CL), x1u)
+        if drops[0] is not None:
+            x = x * drops[0].to(x.dtype)
+        x = self.dil1b(self.dil1a(x))
+        if x1u is not None:
+            x = x + x1u
+        if drops[1] is not None:
+            x = x * drops[1].to(x.dtype)
+        return self.dil2b(self.dil2a(x))
 
     def call_split(self, x_prev, part, point_flat, mask_pre, group: int):
         """Per-round half of the level from its ``conv1_const`` partial.
@@ -291,10 +346,17 @@ class _UpAttenLevel(nn.Module):
 
 
 class AttenDecoder(nn.Module):
-    """5-level decoder (reference ``AttenDecoder``), extraction path."""
+    """5-level decoder (reference ``AttenDecoder``).
+
+    ``forward(point_flat, feats, sem_mask, gold)`` transforms the skips and
+    decodes one glimpse per sample; ``transform_skips`` / ``decode`` are
+    the two halves, so a loop over glimpses transforms once.  Both return
+    ``(targets, preds)``: the 5 per-level gold masks (or Nones) and the 5
+    per-level 2-class logits, coarse to fine."""
 
     def __init__(self, cfg: DecoderConfig, n_filters: int = 32):
         super().__init__()
+        self.drop_rate = float(cfg.drop_rate)
         skips, outs = level_channels(n_filters)
         for i, (f, sc, oc) in enumerate(zip(_FACTORS, skips, outs)):
             self.add_module(f"up_atten{i}", _UpAttenLevel(
@@ -312,11 +374,49 @@ class AttenDecoder(nn.Module):
     def heads(self) -> List[L0Head]:
         return [getattr(self, f"pred{i}") for i in range(5)]
 
-    def transform_skips(self, feats) -> List[torch.Tensor]:
+    def draw_dropout(self, b: int, generator, device, part: str):
+        """The channel-dropout multipliers of one train-mode pass, drawn
+        from ``generator``: ``part="skips"`` -> one per level for
+        ``transform_skips``; ``part="decode"`` -> a pair per level for
+        ``decode``.  None in eval mode or at ``drop_rate`` 0."""
+        if not (self.training and self.drop_rate > 0):
+            return None
+        draw = lambda c: channel_dropout_mask(  # noqa: E731
+            b, c, self.drop_rate, generator, device)
+        if part == "skips":
+            return [draw(lvl.out_ch) for lvl in self.levels]
+        return [(draw(lvl.out_ch), draw(lvl.out_ch)) for lvl in self.levels]
+
+    def transform_skips(self, feats, drops=None) -> List[torch.Tensor]:
         """feats: UNet skips x1..x5 (fine->coarse) -> transformed skips
         coarse->fine, one per level."""
-        return [lvl.transform_skip(s)
-                for lvl, s in zip(self.levels, reversed(feats))]
+        drops = drops or [None] * 5
+        return [lvl.transform_skip(s, d)
+                for lvl, s, d in zip(self.levels, reversed(feats), drops)]
+
+    def decode(self, point_flat, skips_t, sem_mask, gold=None, drops=None):
+        """One full-canvas pyramid pass from transformed skips.  sem_mask
+        and gold are (B, 1, H, W); each level sees them max-pooled to its
+        resolution."""
+        H = sem_mask.shape[2]
+        drops = drops or [(None, None)] * 5
+        preds: List[torch.Tensor] = []
+        targets: List[Optional[torch.Tensor]] = []
+        x = prev_pred = None
+        for lvl, head, skip_t, d in zip(self.levels, self.heads, skips_t,
+                                        drops):
+            f = H // skip_t.shape[2]
+            targets.append(None if gold is None else _maxpool(gold, f))
+            x = lvl(x, skip_t, point_flat, prev_pred, _maxpool(sem_mask, f), d)
+            prev_pred = head(x)
+            preds.append(prev_pred)
+        return targets, preds
+
+    def forward(self, point_flat, feats, sem_mask, gold=None, skips_t=None,
+                drops=None, skip_drops=None):
+        if skips_t is None:
+            skips_t = self.transform_skips(feats, skip_drops)
+        return self.decode(point_flat, list(skips_t), sem_mask, gold, drops)
 
     def conv1_partials(self, skips_t, sem_mask) -> List[torch.Tensor]:
         """Per-level glimpse-independent conv1 partials at batch B."""

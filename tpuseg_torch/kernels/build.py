@@ -5,6 +5,10 @@ library with a plain C interface, loaded with ``ctypes``.  The build runs
 at first use, into ``tpuseg_torch/kernels/_build/`` (listed in
 ``.gitignore``), keyed by a hash of the source so an edited kernel is
 rebuilt.  ``build()`` starts one ``nvcc`` per source, all at once.
+
+``KERNELS`` lists them: ``ir_chain`` (the decoder's fused inverted-residual
+block) and ``masked_softmax`` (the per-instance attention softmax, forward
+and backward).
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("ir_chain",)
+KERNELS = ("ir_chain", "masked_softmax")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",

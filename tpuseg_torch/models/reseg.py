@@ -1,6 +1,6 @@
 """ReSeg: UNet backbone + SE semantic head + instance decoder (port of
-``tpuseg/models/reseg.py``), inference modes ``semantic`` and
-``infer_prep``.
+``tpuseg/models/reseg.py``): the inference modes ``semantic`` and
+``infer_prep``, and the ``loss`` mode of training and validation.
 
 Images arrive NCHW (the 21 standardised channels); ``to_inference``
 prepares a model for a compute dtype: it folds the decoder's eval BNs from
@@ -62,12 +62,14 @@ class _CountHead(nn.Module):
 
     def forward(self, x5):
         y = F.relu(self.Dense_0(x5.mean(dim=(2, 3))))
-        return self.Dense_1(y.float())
+        with torch.autocast(y.device.type, enabled=False):
+            return self.Dense_1(y.float())
 
 
 class _DensityHead(nn.Module):
     """Per-pixel density at 1/4 resolution from the 1/4 + 1/8 skips; its
-    integral is the instance count."""
+    integral is the instance count.  The skips are detached: the head
+    trains without moving the segmentation backbone."""
 
     def __init__(self, c: int, hidden: int = 128):
         super().__init__()
@@ -78,13 +80,34 @@ class _DensityHead(nn.Module):
         self.out_off = nn.Parameter(torch.zeros(1))
 
     def forward(self, skips):
-        x3, x4 = skips[2], skips[3]
+        x3, x4 = skips[2].detach(), skips[3].detach()
         x4u = x4.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
         y = F.relu(self.Conv_0(torch.cat([x3, x4u], dim=1)))
         y = F.relu(self.Conv_1(y))
-        dens = F.softplus(self.Conv_2(y.float()))
+        with torch.autocast(y.device.type, enabled=False):
+            dens = F.softplus(self.Conv_2(y.float()))
         h, w = dens.shape[2:]
         return dens * self.out_gain + self.out_off * (DENSITY_SCALE / float(h * w))
+
+
+def pool_density(gt: torch.Tensor, dh: int, dw: int) -> torch.Tensor:
+    """Mass-preserving sum-pool of a (B, 1, H, W) density map onto the
+    head's (dh, dw) grid."""
+    b, _, h, w = gt.shape
+    return gt.reshape(b, 1, dh, h // dh, dw, w // dw).sum(dim=(3, 5))
+
+
+def density_target(ins_target: torch.Tensor,
+                   n_objects: torch.Tensor) -> torch.Tensor:
+    """(B, N, H, W) instance masks + (B,) counts -> (B, 1, H, W) scaled GT
+    density: each valid instance's mask normalised to unit mass."""
+    masks = ins_target.float()
+    areas = masks.sum(dim=(2, 3))  # (B, N)
+    slots = torch.arange(masks.shape[1], device=masks.device)
+    valid = (slots[None] < n_objects[:, None]) & (areas > 0)
+    w = torch.where(valid, DENSITY_SCALE / areas.clamp(min=1.0),
+                    torch.zeros_like(areas))
+    return torch.einsum("bnhw,bn->bhw", masks, w)[:, None]
 
 
 def density_count(density) -> torch.Tensor:
@@ -138,6 +161,38 @@ class ReSeg(nn.Module):
         x_dec, skips = self.base(images.to(self.dtype))
         sem_logits = self.sem_seg_output(self.channel_attend(x_dec))
         return x_dec, skips, sem_logits
+
+    def loss(self, images, sem_onehot, ins_target, n_objects,
+             generator=None):
+        """The ``loss`` mode, train or eval by ``self.training``.
+
+        images (B, 21, H, W) standardised; sem_onehot (B, C, H, W);
+        ins_target (B, N, H, W) padded instance masks; n_objects (B,).
+        The decoder's mask is the GT semantic argmax for train and
+        validation batches alike.  Returns (sem_logits, sem_mask,
+        decoder losses); the losses also hold ``count_logits`` and the
+        density terms where the heads are on."""
+        cfg = self.cfg
+        x_dec, skips, sem_logits = self._backbone(images)
+        x_enc = self.ins_stem(x_dec)
+        sem_mask = sem_onehot.argmax(dim=1, keepdim=True).to(torch.float32)
+        losses = self.decoder.loss(x_enc, sem_mask, ins_target, n_objects,
+                                   skips, generator=generator)
+        if cfg.model.use_count_head:
+            losses["count_logits"] = self.count_head(skips[-1])
+        if cfg.model.use_density_head:
+            density = self.density_head(skips)
+            dh, dw = density.shape[2:]
+            gt = pool_density(density_target(ins_target, n_objects), dh, dw)
+            # npix/16 keeps the map term at a full-resolution head's
+            # magnitude (1/4-resolution pixels carry 16x the mass)
+            losses["density_loss"] = (
+                (density - gt).square().mean() * float(dh * dw / 16.0))
+            est = density.sum(dim=(1, 2, 3)) / DENSITY_SCALE
+            losses["density_count_loss"] = (
+                (est - n_objects.to(torch.float32)).square().mean())
+            losses["density_count"] = est
+        return sem_logits, sem_mask, losses
 
     @torch.no_grad()
     def semantic(self, images) -> torch.Tensor:

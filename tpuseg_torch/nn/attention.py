@@ -1,9 +1,11 @@
-"""Attention layers and masked batch-norm, eval mode (port of
-``tpuseg/nn/attention.py``), NCHW.
+"""Attention layers and masked batch-norm (port of
+``tpuseg/nn/attention.py``), NCHW, train and eval mode.
 
-``HardAttention`` returns the merged score map only — the extraction path
-consumes nothing else.  The per-instance masked softmax comes with the
-training slice and its ``masked_softmax`` kernel; asking for it raises.
+``HardAttention`` returns the merged score map alone when no instance
+masks are given (all the extraction path consumes); with them it also
+returns the per-instance distributions the training loss samples its
+glimpses from, through the ``masked_softmax`` kernel on the card and its
+plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -11,6 +13,9 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from tpuseg_torch.kernels.masked_softmax import masked_softmax
+from tpuseg_torch.nn.blocks import batch_norm, running_stats_frozen
 
 _NEG_INF = -1e30
 
@@ -55,30 +60,55 @@ class SpatialAttention(nn.Module):
         p = torch.softmax(logits.reshape(b, -1), dim=1)
         p = torch.where(y_sum > 0, p, torch.zeros_like(p))  # empty-mask guard
         beta = (p * y_sum).reshape(beta.shape)
-        return base + self.BatchNorm_0(base * beta) * y
+        return base + batch_norm(self.BatchNorm_0, base * beta) * y
 
 
 class MaskedBatchNorm(nn.Module):
-    """Batch-norm whose statistics only ever saw mask=1 pixels; at eval it
-    normalises with the running statistics, in float32."""
+    """Batch-norm whose statistics only see mask=1 pixels, in float32.
 
-    def __init__(self, c: int, eps: float = 1e-5):
+    Train mode: per-channel mean and variance are the batch average of
+    per-sample masked moments (denominator ``|mask| + 1``), applied to all
+    pixels; the running statistics follow the reversed EMA
+    ``running = momentum * running + (1 - momentum) * batch`` with
+    ``momentum`` 0.1, so they track the latest batch closely (eval-time
+    behaviour depends on it).  Eval mode normalises with the running
+    statistics."""
+
+    def __init__(self, c: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
-    def forward(self, x):
+    def forward(self, x, mask=None):
         v = lambda t: t.float()[None, :, None, None]  # noqa: E731
-        y = (x.float() - v(self.mean)) * torch.rsqrt(v(self.var) + self.eps)
+        xf = x.float()
+        if self.training:
+            if mask is None:
+                raise ValueError("MaskedBatchNorm needs the mask in train mode")
+            m = mask.float()  # (B, 1, H, W), broadcast over channels
+            cnt = m.sum(dim=(1, 2, 3)) + 1.0  # (B,)
+            mean = ((xf * m).sum(dim=(2, 3)) / cnt[:, None]).mean(dim=0)
+            sq = (xf - v(mean)) ** 2
+            var = ((sq * m).sum(dim=(2, 3)) / cnt[:, None]).mean(dim=0)
+            if not running_stats_frozen():
+                with torch.no_grad():
+                    mo = self.momentum
+                    self.mean.mul_(mo).add_(mean.detach(), alpha=1 - mo)
+                    self.var.mul_(mo).add_(var.detach(), alpha=1 - mo)
+        else:
+            mean, var = self.mean, self.var
+        y = (xf - v(mean)) * torch.rsqrt(v(var) + self.eps)
         return y * v(self.scale) + v(self.bias)
 
 
 class HardAttention(nn.Module):
     """Hard-attention score head: smooth, project to one channel,
-    masked-BN against the semantic mask, smooth again, gate by the mask."""
+    masked-BN against the semantic mask, smooth again, gate by the mask;
+    then, given instance masks, one softmax per instance over its pixels."""
 
     def __init__(self, c: int, d_k: int = 12):
         super().__init__()
@@ -87,12 +117,15 @@ class HardAttention(nn.Module):
         self.MaskedBatchNorm_0 = MaskedBatchNorm(1)
 
     def forward(self, s, sem_seg, ins_seg=None):
-        """Returns the merged score ``e`` (B, 1, H, W), float32."""
-        if ins_seg is not None:
-            raise NotImplementedError(
-                "per-instance hard-attention softmax is not ported yet: it "
-                "comes with the training slice and its masked_softmax kernel"
-            )
+        """The merged score ``e`` (B, 1, H, W), float32; with ``ins_seg``
+        (B, N, H, W) the pair ``(per_instance (B, N, H, W), e)``, empty
+        instances all zero.  The gradient reaches ``e``, not the masks."""
         e = torch.tanh(self.Conv_0(avg_pool_3x3_same(s)))
-        e = self.MaskedBatchNorm_0(self.Conv_1(e))
-        return avg_pool_3x3_same(e) * sem_seg.float()
+        e = self.MaskedBatchNorm_0(self.Conv_1(e), sem_seg)
+        e = avg_pool_3x3_same(e) * sem_seg.float()
+        if ins_seg is None:
+            return e
+        b, n, h, w = ins_seg.shape
+        p = masked_softmax(e.reshape(b, h * w).contiguous(),
+                           ins_seg.float().contiguous().reshape(b, n, h * w))
+        return p.reshape(b, n, h, w), e

@@ -2,13 +2,20 @@
 
 NCHW ``nn.Module``s whose submodule names are the flax auto-names
 (``Conv_0``, ``_BN_1``...), so a checkpoint leaf's torch key is its flax
-path (``tpuseg_torch/weights.py``).  Eval-mode inference: BatchNorm uses
-its running statistics.
+path (``tpuseg_torch/weights.py``).
+
+BatchNorm follows flax in train mode (``batch_norm``): the running variance
+takes the *biased* batch variance, where ``torch.nn.BatchNorm2d`` would store
+the unbiased one, so a train step ends with the running statistics the JAX
+package ends with.  ``running_stats`` lets a caller stop the update (a
+recomputed forward under activation checkpointing) or let one update stand
+for several identical ones (skip transforms hoisted out of the glimpse loop).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -19,16 +26,61 @@ def relu6(x: torch.Tensor) -> torch.Tensor:
     return x.clamp(0.0, 6.0)
 
 
+# how train-mode BatchNorms treat their running statistics right now
+_RUNNING = {"frozen": False, "repeats": 1}
+
+
+@contextlib.contextmanager
+def running_stats(frozen: Optional[bool] = None,
+                  repeats: Optional[int] = None):
+    """Within the block, train-mode BatchNorms leave their running
+    statistics alone (``frozen``) or apply one update as ``repeats``
+    identical ones: ``ra + (batch - ra) * (1 - (1 - momentum)**repeats)``."""
+    old = dict(_RUNNING)
+    if frozen is not None:
+        _RUNNING["frozen"] = frozen
+    if repeats is not None:
+        _RUNNING["repeats"] = repeats
+    try:
+        yield
+    finally:
+        _RUNNING.update(old)
+
+
+def running_stats_frozen() -> bool:
+    return _RUNNING["frozen"]
+
+
+def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """``bn(x)`` with flax's running-statistics rule in train mode: batch
+    mean and *biased* batch variance, ``ra = (1 - m) * ra + m * batch``
+    with ``m`` torch's momentum (0.1, flax's 0.9)."""
+    if not bn.training:
+        return bn(x)
+    mean = torch.zeros_like(bn.running_mean)
+    var = torch.ones_like(bn.running_var)
+    # momentum 1 leaves the batch mean and the unbiased batch variance
+    y = F.batch_norm(x, mean, var, bn.weight, bn.bias, True, 1.0, bn.eps)
+    if not _RUNNING["frozen"]:
+        n = x.numel() // x.shape[1]
+        w = 1.0 - (1.0 - bn.momentum) ** _RUNNING["repeats"]
+        with torch.no_grad():
+            bn.running_mean.lerp_(mean, w)
+            bn.running_var.lerp_(var * ((n - 1) / n), w)
+    return y
+
+
 class _BN(nn.Module):
-    """BatchNorm matching torch defaults (eps 1e-5, momentum 0.1); the
-    wrapper level mirrors the flax ``_BN/BatchNorm_0`` nesting."""
+    """BatchNorm matching torch defaults (eps 1e-5, momentum 0.1) with
+    flax's running variance (``batch_norm``); the wrapper level mirrors the
+    flax ``_BN/BatchNorm_0`` nesting."""
 
     def __init__(self, c: int):
         super().__init__()
         self.BatchNorm_0 = nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
 
     def forward(self, x):
-        return self.BatchNorm_0(x)
+        return batch_norm(self.BatchNorm_0, x)
 
     def folded(self):
         """Inference affine ``(scale, shift)`` in float32."""

@@ -1,4 +1,4 @@
-"""flax variable trees -> the port's ``state_dict``.
+"""flax variable trees <-> the port's ``state_dict``.
 
 The port's modules carry the flax module names (``Conv_0``, ``_BN_1``,
 ``up_atten3``...), so a leaf's torch key is its flax path joined with dots
@@ -17,6 +17,10 @@ inverse of ``tools/convert_reference_weights.py:46-61``:
   ``num_batches_tracked``;
 * ``MaskedBatchNorm_*`` keeps scale/bias/mean/var; ``decoder_state``'s
   ``baseline`` becomes a buffer of the same name.
+
+``to_flax`` is the exact inverse (so a state trained by the port can be
+compared with, or read by, the JAX package) and ``grads_to_flax`` applies
+the same map to the ``.grad`` fields.
 """
 
 from __future__ import annotations
@@ -82,6 +86,72 @@ def from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                 raise ValueError(f"two flax leaves map to {key}")
             sd[key] = torch.from_numpy(np.array(a))
     return sd
+
+
+def _is_bn(module) -> bool:
+    return isinstance(module, torch.nn.modules.batchnorm._BatchNorm)
+
+
+def _unconvert(owner, mod: str, name: str, a: np.ndarray):
+    """Inverse of ``_convert``: (collection, flax leaf name, flax array)
+    for the tensor ``name`` of the module ``owner`` (named ``mod``)."""
+    if _is_bn(owner):
+        if name == "num_batches_tracked":
+            return None
+        leaf = {v: k for k, v in _BN_NAMES.items()}[name]
+        col = "batch_stats" if leaf in ("mean", "var") else "params"
+        return col, leaf, a
+    if name == "baseline":
+        return "decoder_state", name, a
+    if name in dict(owner.named_buffers(recurse=False)):
+        return "batch_stats", name, a  # MaskedBatchNorm mean / var
+    if name != "weight":
+        return "params", name, a
+    if a.ndim == 2:
+        return "params", "kernel", a.T
+    if _is_conv_transpose(mod):
+        return "params", "kernel", np.transpose(a[:, :, ::-1, ::-1],
+                                                (2, 3, 0, 1))
+    return "params", "kernel", np.transpose(a, (2, 3, 1, 0))
+
+
+def _to_tree(model: torch.nn.Module, pick) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for prefix, owner in model.named_modules():
+        tensors = list(owner.named_parameters(recurse=False))
+        tensors += list(owner.named_buffers(recurse=False))
+        for name, t in tensors:
+            value = pick(t)
+            if value is None:
+                continue
+            got = _unconvert(owner, prefix.split(".")[-1], name,
+                             value.detach().cpu().numpy())
+            if got is None:
+                continue
+            col, leaf, a = got
+            node = tree.setdefault(col, {})
+            for part in (prefix.split(".") if prefix else []):
+                node = node.setdefault(part, {})
+            node[leaf] = np.array(a, order="C")
+    return tree
+
+
+def to_flax(model: torch.nn.Module) -> Dict[str, Any]:
+    """The model's parameters and buffers as the nested flax tree
+    ``{"params", "batch_stats", "decoder_state"}`` of numpy arrays:
+    ``to_flax(load_flax(m, v))`` equals ``v`` leaf for leaf."""
+    return _to_tree(model, lambda t: t)
+
+
+def grads_to_flax(model: torch.nn.Module) -> Dict[str, Any]:
+    """The ``.grad`` of every parameter as a flax ``params`` tree (a
+    parameter without a gradient gives zeros)."""
+    def pick(t):
+        if not isinstance(t, torch.nn.Parameter):
+            return None
+        return torch.zeros_like(t) if t.grad is None else t.grad
+
+    return _to_tree(model, pick)["params"]
 
 
 def load_flax(model: torch.nn.Module, variables: Dict[str, Any]):
