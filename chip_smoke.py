@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (``ir_chain``, ``masked_softmax``) from
+Builds the port's CUDA kernels (``ir_chain``, ``masked_softmax``,
+``sru_scan``) from
 ``tpuseg_torch/kernels/csrc`` with ``nvcc`` (sm_90a), then:
 
 1. holds the ``ir_chain`` kernel against its plain PyTorch version at the
@@ -36,7 +37,24 @@ Builds the port's CUDA kernels (``ir_chain``, ``masked_softmax``) from
    the launch counters reset just before and read just after: the
    ``masked_softmax`` forward must have launched once per train and
    validation step, the backward once per train step, and ``ir_chain`` in
-   the validation decode; prints steps/s, peak memory and a breakdown.
+   the validation decode; prints steps/s, peak memory and a breakdown;
+7. holds the ``sru_scan`` kernels, forward and backward, against their
+   plain versions at the width of the SRU paper's word-level Penn Treebank
+   language model (hidden 910, batch 32 x 35 steps, highway bias -3): uni
+   (k = 3) and bidirectional (k = 4), the three activations, with and
+   without the dropout mask ``mask_c``, one ragged ``mask_pad`` case and
+   one 1024-step sequence; forward within 2e-5, backward within rtol 3e-4 /
+   atol 3e-5 of the written-out backward and (35 steps) of autograd through
+   the plain loop, weight gradients bit-equal over two runs; times both
+   beside the bytes bound;
+8. runs the 6-layer uni and bidirectional ``SRU`` stacks at that width in
+   float32 (TF32 off), forward and backward, on the card (kernels) and on
+   the CPU (plain loop) from one set of weights and inputs;
+9. drives the SRU training path: 3 SGD steps of the 6-layer uni stack
+   (``rnn_dropout`` and ``dropout`` 0.2 from a seeded generator) on a
+   fixed random target, with the SRU launch counters reset just before and
+   read just after: 6 forward and 6 backward calls per step; prints ms per
+   step with the GEMMs' and the scans' share (``torch.profiler``).
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises: the
@@ -553,6 +571,355 @@ def phase_train_timed(cfg, model, dev, softmax_rows):
     }
 
 
+# The SRU path's full width: the word-level Penn Treebank language model of
+# Lei et al. (2018), "Simple Recurrent Units for Highly Parallelizable
+# Recurrence" (the public taolei87/sru language_model example): 6 layers,
+# input = hidden = 910, batch 32 x 35 steps, highway bias -3.
+SRU_LM = dict(layers=6, width=910, batch=32, length=35, highway_bias=-3.0)
+SRU_LONG = 1024  # one long sequence, where the scan outlasts a launch
+SRU_FWD_TOL = dict(rtol=2e-5, atol=2e-5)  # tests/test_sru.py
+SRU_BWD_TOL = dict(rtol=3e-4, atol=3e-5)
+
+
+def bytes_ms(*tensors):
+    """The bytes bound in ms: each tensor moved once at the memory rate."""
+    moved = sum(4 * t.numel() for t in tensors if t is not None)
+    return 1e3 * moved / PEAK_BYTES
+
+
+def kernel_device_ms(fn, calls, name_part):
+    """Device time per call of the kernels whose name holds ``name_part``,
+    from ``torch.profiler`` over ``calls`` calls, or None when the trace
+    holds none.  Where a kernel takes tens of microseconds, back-to-back
+    calls timed with events read the pace of the Python wrapper instead."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and name_part in e.name)
+    return us / 1e3 / calls if us > 0 else None
+
+
+def within(got, want, rtol, atol, what):
+    """Max |got - want|; raises unless every element is within
+    ``atol + rtol * |want|``."""
+    import torch
+
+    if (got is None) != (want is None):
+        raise AssertionError(f"{what}: one side has no result")
+    if got is None:
+        return 0.0
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite values")
+    diff = (got - want).abs()
+    if not (diff <= atol + rtol * want.abs()).all():
+        raise AssertionError(
+            f"{what}: max|err| {diff.max().item():.3e} beyond atol {atol} + "
+            f"rtol {rtol} (max|want| {want.abs().max().item():.3e})")
+    return diff.max().item()
+
+
+def sru_case(dev, length, bidir, activation, mask_c, pad, seed):
+    """Inputs of one scan at the language-model width: u = x @ W with the
+    init recipe's W (highway bias -3), x ~ N(0, 1), a small c0; k = 3 uni,
+    k = 4 bidirectional (input 910, output 1820)."""
+    import torch
+
+    from tpuseg_torch.nn import SRUCell
+
+    w, b = SRU_LM["width"], SRU_LM["batch"]
+    g = torch.Generator().manual_seed(seed)
+    cell = SRUCell(w, w, bidirectional=bidir, activation=activation,
+                   highway_bias=SRU_LM["highway_bias"], generator=g)
+    ndir = 2 if bidir else 1
+    x = torch.randn(length, b, w, generator=g).to(dev)
+    u = (x.reshape(-1, w) @ cell.weight.detach().to(dev)).reshape(
+        length, b, -1)
+    a = {"u": u, "x": x, "weight_c": cell.weight_c.detach().to(dev),
+         "bias": cell.bias.detach().to(dev),
+         "c0": (0.5 * torch.randn(b, ndir * w, generator=g)).to(dev),
+         "mask_c": None, "mask_pad": None}
+    if mask_c:
+        a["mask_c"] = (torch.bernoulli(torch.full((b, ndir * w), 0.8),
+                                       generator=g) / 0.8).to(dev)
+    if pad:
+        lengths = torch.randint(1, length + 1, (b,), generator=g)
+        lengths[0] = length
+        a["mask_pad"] = (torch.arange(length)[:, None]
+                         >= lengths[None]).float().to(dev)
+    spec = (w, activation, bidir, True, cell.scale_x)
+    return a, spec, cell._k()
+
+
+def phase_sru_kernels(dev):
+    """sru_scan kernels vs plain at the language model's width."""
+    import torch
+
+    from tpuseg_torch.kernels.sru_scan import (
+        sru_scan_backward, sru_scan_backward_plain, sru_scan_forward,
+    )
+    from tpuseg_torch.nn import sru_recurrence
+    from tpuseg_torch.nn.sru import sru_states
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    length = SRU_LM["length"]
+    cases = [(length, bidir, act, mc, False)
+             for bidir in (False, True) for act in (0, 1, 2)
+             for mc in (False, True)]
+    cases += [(length, False, 1, True, True),
+              (SRU_LONG, False, 0, True, False)]
+    names = ("u", "x", "weight_c", "bias", "c0", "mask_c", "mask_pad")
+    rows, max_fwd, max_bwd = [], 0.0, 0.0
+    for i, (length, bidir, act, mc, pad) in enumerate(cases):
+        a, spec, k = sru_case(dev, length, bidir, act, mc, pad, seed=100 + i)
+        args = [a[n] for n in names]
+        kw = dict(d=spec[0], activation=act, bidirectional=bidir,
+                  has_skip_term=True, scale_x=spec[4], mask_pad=a["mask_pad"],
+                  mask_c=a["mask_c"])
+        label = (f"sru L={length} {'bi' if bidir else 'uni'} k={k} act={act}"
+                 f"{' mask_c' if mc else ''}{' mask_pad' if pad else ''}")
+        h, cf, c_all = sru_scan_forward(*args, *spec)
+        hp, cfp, c_allp = sru_states(*args[:5], **kw)
+        err_f = max(within(h, hp, **SRU_FWD_TOL, what=f"{label} h"),
+                    within(cf, cfp, **SRU_FWD_TOL, what=f"{label} c_final"),
+                    within(c_all, c_allp, **SRU_FWD_TOL, what=f"{label} c"))
+        gen = torch.Generator().manual_seed(200 + i)
+        gh = torch.randn(h.shape, generator=gen).to(dev)
+        gcf = torch.randn(cf.shape, generator=gen).to(dev)
+        got = sru_scan_backward(*args, c_all, gh, gcf, *spec)
+        again = sru_scan_backward(*args, c_all, gh, gcf, *spec)
+        torch.cuda.synchronize()
+        for gname, g1, g2 in zip(("du", "dx", "dweight_c", "dbias", "dc0"),
+                                 got, again):
+            if not (g1 is None or torch.equal(g1, g2)):
+                raise AssertionError(f"{label}: {gname} differs between two "
+                                     f"backward runs")
+        want = sru_scan_backward_plain(*args, c_all, gh, gcf, *spec)
+        gnames = ("du", "dx", "dweight_c", "dbias", "dc0")
+        err_b = max(within(g, w, **SRU_BWD_TOL, what=f"{label} {n}")
+                    for n, g, w in zip(gnames, got, want))
+        if length == SRU_LM["length"]:
+            leaves = [t.clone().requires_grad_() for t in args[:5]]
+            hh, cc = sru_recurrence(*leaves, **kw)
+            ((hh * gh).sum() + (cc * gcf).sum()).backward()
+            err_b = max(err_b, *(
+                within(g, leaf.grad, **SRU_BWD_TOL,
+                       what=f"{label} {n} vs autograd")
+                for n, g, leaf in zip(gnames, got, leaves)
+                if leaf.grad is not None or g is not None))
+            del leaves, hh, cc
+        max_fwd, max_bwd = max(max_fwd, err_f), max(max_bwd, err_b)
+        # times: the kernels' device time (profiler) and a call's time
+        # (CUDA events over back-to-back calls, wrapper included); plain at
+        # few iterations (it is thousands of launches)
+        p_iters = 2 if length > 100 else 5
+        def fwd():
+            return sru_scan_forward(*args, *spec)
+
+        def bwd():
+            return sru_scan_backward(*args, c_all, gh, gcf, *spec)
+
+        with torch.no_grad():
+            fc_ms, bc_ms = cuda_ms(fwd, 20), cuda_ms(bwd, 20)
+            f_ms = kernel_device_ms(fwd, 10, "sru_") or fc_ms
+            b_ms = kernel_device_ms(bwd, 10, "sru_") or bc_ms
+            pf_ms = cuda_ms(lambda: sru_states(*args[:5], **kw), p_iters, 1)
+            pb_ms = cuda_ms(lambda: sru_scan_backward_plain(
+                *args, c_all, gh, gcf, *spec), p_iters, 1)
+        x_in = a["x"] if k == 3 else None
+        small = (a["weight_c"], a["bias"], a["c0"], a["mask_c"],
+                 a["mask_pad"])
+        bf = bytes_ms(a["u"], x_in, *small, h, c_all, cf)
+        bb = bytes_ms(a["u"], x_in, *small, c_all, gh, gcf, *got)
+        rows.append({
+            "case": label, "length": length, "bidirectional": bidir, "k": k,
+            "activation": act, "mask_c": mc, "mask_pad": pad,
+            "forward_ms": f_ms, "backward_ms": b_ms,
+            "forward_call_ms": fc_ms, "backward_call_ms": bc_ms,
+            "plain_forward_ms": pf_ms, "plain_backward_ms": pb_ms,
+            "bound_forward_ms": bf, "bound_backward_ms": bb,
+            "max_abs_err_forward": err_f, "max_abs_err_backward": err_b,
+        })
+        log(f"  {label}: forward {f_ms:.4f} ms (call {fc_ms:.4f}, plain "
+            f"{pf_ms:.3f}, bound {bf:.4f}), backward {b_ms:.4f} ms (call "
+            f"{bc_ms:.4f}, plain {pb_ms:.3f}, bound {bb:.4f}); max|err| "
+            f"forward {err_f:.2e} backward {err_b:.2e}")
+        del a, args, h, c_all, got, again, want
+    torch.cuda.empty_cache()
+    return rows, max_fwd, max_bwd
+
+
+def phase_sru_stack(dev):
+    """The 6-layer uni and bi SRU stacks, f32, card (kernels) vs CPU
+    (plain): h, per-layer c, the input's and every parameter's gradient.
+    Tolerances: h and c within 1e-4 of max|h|, each gradient within 1e-3
+    of its largest element (and 1e-4 in relative L2): the two devices'
+    float32 GEMMs sum 910 or 1820 products in other orders, and six layers
+    carry that on."""
+    import torch
+
+    from tpuseg_torch.kernels.sru_scan import BACKWARD_LAUNCHES, sru_scan
+    from tpuseg_torch.nn import SRU
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    w, b, length, layers = (SRU_LM["width"], SRU_LM["batch"],
+                            SRU_LM["length"], SRU_LM["layers"])
+    out = {}
+    for bidir in (False, True):
+        ndir = 2 if bidir else 1
+        g = torch.Generator().manual_seed(300 + ndir)
+        cpu = SRU(w, w, layers, bidirectional=bidir,
+                  highway_bias=SRU_LM["highway_bias"], generator=g).eval()
+        card = copy.deepcopy(cpu).to(dev)
+        x = torch.randn(length, b, w, generator=g)
+        gh = torch.randn(length, b, ndir * w, generator=g)
+        gc = torch.randn(layers, b, ndir * w, generator=g)
+        res = {}
+        for name, m, dv in (("cpu", cpu, "cpu"), ("card", card, dev)):
+            launches = (sru_scan.forward_launches, sru_scan.backward_launches)
+            t = time.perf_counter()
+            xx = x.to(dv, copy=True).requires_grad_()
+            h, c = m(xx)
+            ((h * gh.to(dv)).sum() + (c * gc.to(dv)).sum()).backward()
+            res[name] = (h.detach().cpu(), c.detach().cpu(), xx.grad.cpu(),
+                         {n: p.grad.cpu() for n, p in m.named_parameters()})
+            secs = time.perf_counter() - t
+            got = (sru_scan.forward_launches - launches[0],
+                   sru_scan.backward_launches - launches[1])
+            want = (0, 0) if name == "cpu" else (layers,
+                                                 layers * BACKWARD_LAUNCHES)
+            if got != want:
+                raise AssertionError(f"SRU stack on {name}: launches {got}, "
+                                     f"want {want}")
+            log(f"  {layers}-layer {'bi' if bidir else 'uni'} stack on "
+                f"{name}: {secs:.2f} s forward + backward")
+        (hc, cc, xc, gcpu), (hg, cg, xg, gcard) = res["cpu"], res["card"]
+        errs = {}
+        for what, got, want in (("h", hg, hc), ("c", cg, cc)):
+            e = (got - want).abs().max().item()
+            if not e <= 1e-4 * want.abs().max().item():
+                raise AssertionError(f"SRU stack {what}: max|err| {e:.3e}")
+            errs[what] = e
+        worst_rel, worst_l2 = 0.0, 0.0
+        for name, got, want in [("x", xg, xc)] + [
+                (n, gcard[n], gcpu[n]) for n in gcpu]:
+            e = (got - want).abs().max().item() / want.abs().max().item()
+            l2 = ((got - want).norm() / want.norm()).item()
+            if not (e <= 1e-3 and l2 <= 1e-4):
+                raise AssertionError(
+                    f"SRU stack grad {name}: max|err|/max {e:.3e}, rel L2 "
+                    f"{l2:.3e}")
+            worst_rel, worst_l2 = max(worst_rel, e), max(worst_l2, l2)
+        key = "bi" if bidir else "uni"
+        out[key] = {"h_max_abs_err": errs["h"], "c_max_abs_err": errs["c"],
+                    "grad_max_err_over_max": worst_rel,
+                    "grad_rel_l2": worst_l2}
+        log(f"  {layers}-layer {key} stack card vs CPU: max|err| h "
+            f"{errs['h']:.2e} c {errs['c']:.2e}; gradients (x and "
+            f"{len(gcpu)} parameters) worst max|err|/max {worst_rel:.2e}, "
+            f"rel L2 {worst_l2:.2e}")
+        del cpu, card, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sru_train(dev):
+    """The SRU training path: 3 SGD steps of the 6-layer uni stack with
+    dropout, launch counters reset just before and read just after."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuseg_torch.kernels.sru_scan import (
+        BACKWARD_LAUNCHES, FORWARD_LAUNCHES, sru_scan,
+    )
+    from tpuseg_torch.nn import SRU
+
+    w, b, length, layers = (SRU_LM["width"], SRU_LM["batch"],
+                            SRU_LM["length"], SRU_LM["layers"])
+    g = torch.Generator().manual_seed(400)
+    model = SRU(w, w, layers, dropout=0.2, rnn_dropout=0.2,
+                highway_bias=SRU_LM["highway_bias"], generator=g).to(dev)
+    model.train()
+    x = torch.randn(length, b, w, generator=g).to(dev)
+    target = torch.randn(length, b, w, generator=g).to(dev)
+    opt = torch.optim.SGD(model.parameters(), lr=0.5)
+    gen = torch.Generator(device=dev).manual_seed(401)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        h, _ = model(x, generator=gen)
+        loss = torch.nn.functional.mse_loss(h, target)
+        loss.backward()
+        opt.step()
+        return loss
+
+    sru_scan.launches = 0
+    sru_scan.forward_launches = 0
+    sru_scan.backward_launches = 0
+    losses, step_ms = [], []
+    for i in range(3):
+        before = (sru_scan.forward_launches, sru_scan.backward_launches)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(float(step().detach()))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+        got = (sru_scan.forward_launches - before[0],
+               sru_scan.backward_launches - before[1])
+        if got != (layers * FORWARD_LAUNCHES, layers * BACKWARD_LAUNCHES):
+            raise AssertionError(
+                f"SRU train step {i}: launches forward/backward {got}, want "
+                f"{layers} forward and {layers} backward calls")
+    counts = {"forward": sru_scan.forward_launches,
+              "backward": sru_scan.backward_launches,
+              "total": sru_scan.launches}
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"SRU train losses not finite: {losses}")
+    # where a step's device time goes: two more steps under the profiler
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+    parts = {"gemm": 0.0, "scan": 0.0, "other": 0.0}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA or "#" in e.name:
+            continue
+        low = e.name.lower()
+        kind = ("scan" if "sru_" in low else
+                "gemm" if "gemm" in low or "xmma" in low or "cutlass" in low
+                else "other")
+        parts[kind] += e.device_time / 1e3 / 2
+    busy = sum(parts.values())
+    breakdown = parts if busy > 0 else None
+    log(f"phase sru-train ({layers}-layer uni stack, {w} wide, B={b} x "
+        f"{length} steps, dropout 0.2 / 0.2, SGD): losses "
+        f"{', '.join(f'{v:.5f}' for v in losses)}; ms per step "
+        f"{', '.join(f'{v:.2f}' for v in step_ms)}; launches forward "
+        f"{counts['forward']} backward {counts['backward']}")
+    if breakdown:
+        log(f"  device time per step (torch.profiler, 2 steps): GEMMs "
+            f"{parts['gemm']:.3f} ms, SRU scans {parts['scan']:.3f} ms, other "
+            f"{parts['other']:.3f} ms; busy {busy:.3f} of "
+            f"{float(np.median(step_ms)):.2f} ms")
+    else:
+        log("  device time per step: not measured (the trace holds no "
+            "device activity)")
+    del model, opt
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": step_ms,
+            "device_ms_per_step": breakdown, "launches": counts}
+
+
 def make_images(n, seed):
     from tpuseg_torch.data.synthetic import label_map, make_scene
 
@@ -749,6 +1116,22 @@ def main() -> int:
     train = phase_train_timed(cfg, model, dev, sm_rows)
     log(f"phase train-timed: {time.perf_counter() - t0:.1f} s")
 
+    # -- phase 8: sru_scan kernels vs plain, forward and backward
+    t0 = time.perf_counter()
+    sru_rows, sru_fwd_err, sru_bwd_err = phase_sru_kernels(dev)
+    log(f"phase sru-vs-plain: {time.perf_counter() - t0:.1f} s (max|err| "
+        f"forward {sru_fwd_err:.3e}, backward {sru_bwd_err:.3e})")
+
+    # -- phase 9: the 6-layer SRU stacks, card vs CPU, f32
+    t0 = time.perf_counter()
+    sru_stack = phase_sru_stack(dev)
+    log(f"phase sru-stack: {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 10: the SRU training path, 3 SGD steps, launches counted
+    t0 = time.perf_counter()
+    sru_train = phase_sru_train(dev)
+    log(f"phase sru-train: {time.perf_counter() - t0:.1f} s")
+
     summary = {
         "train": train, "train_f32": train_f32,
         "img_per_s_bf16": len(imgs) / dt_main,
@@ -760,11 +1143,19 @@ def main() -> int:
         "ir_chain_launches_per_batch": launches / len(batches),
         "count_agreement_bf16_f32": float(np.mean(counts_f32 == counts_bf16)),
         "e2e_f32_idmap_agreement": agree,
+        "sru_stack": sru_stack, "sru_train": sru_train,
         "seconds": time.perf_counter() - t_all,
     }
     log("summary " + json.dumps(summary))
     log("ir_chain rows " + json.dumps(rows))
     log("masked_softmax rows " + json.dumps(sm_rows))
+    log("sru_scan rows " + json.dumps(sru_rows))
+    # the training path's scan: uni, k = 3, identity, dropout mask, 35 steps
+    sru_main = [r for r in sru_rows if r["length"] == SRU_LM["length"]
+                and not r["bidirectional"] and r["activation"] == 0
+                and r["mask_c"] and not r["mask_pad"]][0]
+    sru_note = ("no PyTorch call computes the SRU recurrence: the plain "
+                "version is a loop of elementwise calls over time")
     sm8 = [r for r in sm_rows if r["shape"][0] == 8][0]
     kernels = {"kernels": [{
         "name": "ir_chain",
@@ -807,7 +1198,42 @@ def main() -> int:
         "library_ms": sm8["torch_softmax_ms"],
         "library_call": "torch.softmax(logits, dim=-1) on already-masked "
                         "(B, N, HW) logits, forward only",
+    }, {
+        "name": "sru_scan_forward",
+        "route": "cuda",
+        "source": "tpuseg_torch/kernels/csrc/sru_scan.cu",
+        "replaces": "tpuseg/kernels/sru_scan.py:275",
+        # the 3 SGD steps of the 6-layer stack: one launch per layer
+        "launches": sru_train["launches"]["forward"],
+        "checked": True,
+        "max_abs_err": sru_fwd_err,
+        # one layer of the training path: (35, 32, 910), k = 3; device
+        # time (profiler), and a call's time with the wrapper (events)
+        "ms": sru_main["forward_ms"],
+        "call_ms": sru_main["forward_call_ms"],
+        "plain_ms": sru_main["plain_forward_ms"],
+        "bound_ms": sru_main["bound_forward_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library_call": sru_note,
+    }, {
+        "name": "sru_scan_backward",
+        "route": "cuda",
+        "source": "tpuseg_torch/kernels/csrc/sru_scan.cu",
+        "replaces": "tpuseg/kernels/sru_scan.py:375",
+        # two launches per layer and step: the reverse scan, the batch sum
+        "launches": sru_train["launches"]["backward"],
+        "checked": True,
+        "max_abs_err": sru_bwd_err,
+        "ms": sru_main["backward_ms"],
+        "call_ms": sru_main["backward_call_ms"],
+        "plain_ms": sru_main["plain_backward_ms"],
+        "bound_ms": sru_main["bound_backward_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library_call": sru_note,
     }]}
+    log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

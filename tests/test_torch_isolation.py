@@ -41,6 +41,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                  "runtime.train", "runtime.state", "runtime.loop",
                  "runtime.checkpoint", "runtime.metrics_log"):
         assert f"tpuseg_torch.{name}" in res["imported"], name
+    # and the SRU slice's
+    for name in ("nn.sru", "kernels.sru_scan"):
+        assert f"tpuseg_torch.{name}" in res["imported"], name
     assert res["bad"] == []
 
 
@@ -76,3 +79,31 @@ def test_kernel_wrappers_do_not_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         masked_softmax(torch.zeros(1, 8, device="meta"),
                        torch.zeros(1, 2, 8, device="meta"))
+
+
+def test_sru_takes_the_plain_path_only_for_cpu_tensors():
+    """Without CUDA, ``SRU`` on CPU tensors runs the plain loop (no launch
+    counted, the same numbers as ``sru_recurrence`` layer by layer); the
+    kernel wrapper raises on a tensor that is not on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: CUDA tensors take the kernels here")
+    from tpuseg_torch.kernels.sru_scan import sru_scan
+    from tpuseg_torch.nn import SRU, sru_recurrence
+
+    stack = SRU(4, 3, num_layers=2, bidirectional=True,
+                generator=torch.Generator().manual_seed(0))
+    x = torch.randn(5, 2, 4, generator=torch.Generator().manual_seed(1))
+    before = sru_scan.launches
+    h, c = stack(x)
+    assert sru_scan.launches == before
+    want = x
+    for cell in (stack.cell0, stack.cell1):
+        u = (want.reshape(-1, cell.n_in) @ cell.weight).reshape(5, 2, -1)
+        want, _ = sru_recurrence(u, want, cell.weight_c, cell.bias, d=3,
+                                 bidirectional=True, scale_x=cell.scale_x)
+    assert torch.equal(h, want) and c.shape == (2, 2, 6)
+    meta = {"device": "meta"}
+    with pytest.raises(ValueError, match="unsupported device"):
+        sru_scan(torch.zeros(5, 2, 24, **meta), torch.zeros(5, 2, 4, **meta),
+                 torch.zeros(12, **meta), torch.zeros(12, **meta), d=3,
+                 bidirectional=True)

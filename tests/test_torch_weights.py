@@ -7,6 +7,7 @@ import flax.serialization
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from tpuseg_torch.configs import cvppp_config
@@ -121,3 +122,62 @@ def test_conv_transpose_needs_the_spatial_flip():
             model.ConvTranspose_0.weight.flip(2, 3))
         unflipped = model(xt).permute(0, 2, 3, 1).numpy()
     assert np.abs(unflipped - want).max() > 1e-2
+
+
+def _sru_variables(kind):
+    """(flax variables of a JAX SRU module from its ``init``, the port's
+    module of the same configuration)."""
+    from tpuseg.nn import sru as jsru
+    from tpuseg_torch.nn import SRU, SRUCell
+
+    if kind == "sru-cell":
+        kw, jmod, tmod = dict(n_in=6, n_out=4), jsru.SRUCell, SRUCell
+    elif kind == "sru-uni":
+        kw = dict(input_size=6, hidden_size=6, num_layers=2)
+        jmod, tmod = jsru.SRU, SRU
+    else:
+        kw = dict(input_size=6, hidden_size=5, num_layers=2,
+                  bidirectional=True, n_proj=3, use_layer_norm=True)
+        jmod, tmod = jsru.SRU, SRU
+    x = jnp.zeros((3, 2, 6), jnp.float32)
+    variables = jax.jit(jmod(**kw).init)(jax.random.PRNGKey(4), x)
+    return jax.tree.map(np.asarray, variables), tmod(**kw)
+
+
+@pytest.mark.parametrize("kind", ["reseg", "sru-cell", "sru-uni",
+                                  "sru-bi-proj-ln"])
+def test_round_trip_leaf_for_leaf(kind):
+    """``to_flax(load_flax(m, v))`` equals ``v`` (names, shapes, dtypes,
+    bytes) for the ``ReSeg`` checkpoint, as before the SRU leaves were
+    taught, and for SRU trees: a bare cell (leaves at the root), a stack,
+    and a bidirectional stack with projections and LayerNorms."""
+    if kind == "reseg":
+        variables, model = read_msgpack(CKPT), ReSeg(cvppp_config())
+    else:
+        variables, model = _sru_variables(kind)
+    model = load_flax(model, variables)
+    want, got = dict(_leaves(variables)), dict(_leaves(to_flax(model)))
+    assert got.keys() == want.keys()
+    for path, w in want.items():
+        g = got[path]
+        assert g.shape == w.shape and g.dtype == w.dtype, path
+        assert g.tobytes() == np.ascontiguousarray(w).tobytes(), path
+    grads = dict(_leaves(grads_to_flax(model)))
+    assert grads.keys() == dict(_leaves(variables["params"])).keys()
+
+
+def test_sru_leaves_map_untransposed_and_layer_norm_scale_to_weight():
+    """An SRU cell's ``weight`` is used as ``x @ weight`` on both sides, so
+    it passes as it is (a Dense ``kernel`` would be transposed); ``ln{i}``'s
+    ``scale`` becomes ``weight``; the LayerNorm keeps flax's eps 1e-6."""
+    variables, model = _sru_variables("sru-bi-proj-ln")
+    sd = from_flax(variables)
+    p = variables["params"]
+    np.testing.assert_array_equal(sd["cell0.weight"].numpy(),
+                                  p["cell0"]["weight"])
+    np.testing.assert_array_equal(sd["cell1.weight_proj"].numpy(),
+                                  p["cell1"]["weight_proj"])
+    np.testing.assert_array_equal(sd["ln1.weight"].numpy(), p["ln1"]["scale"])
+    assert "ln1.scale" not in sd and model.ln1.eps == 1e-6
+    assert sd["cell0.weight"].shape == (3, 2 * 5 * 4)  # rows, bidir*d*k
+    model.load_state_dict(sd, strict=True)

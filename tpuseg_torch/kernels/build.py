@@ -7,8 +7,8 @@ at first use, into ``tpuseg_torch/kernels/_build/`` (listed in
 rebuilt.  ``build()`` starts one ``nvcc`` per source, all at once.
 
 ``KERNELS`` lists them: ``ir_chain`` (the decoder's fused inverted-residual
-block) and ``masked_softmax`` (the per-instance attention softmax, forward
-and backward).
+block), ``masked_softmax`` (the per-instance attention softmax, forward
+and backward) and ``sru_scan`` (the SRU recurrence, forward and backward).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("ir_chain", "masked_softmax")
+KERNELS = ("ir_chain", "masked_softmax", "sru_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",

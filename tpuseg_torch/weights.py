@@ -16,7 +16,10 @@ inverse of ``tools/convert_reference_weights.py:46-61``:
   running_var (eps 1e-5 lives in the module), plus a zero
   ``num_batches_tracked``;
 * ``MaskedBatchNorm_*`` keeps scale/bias/mean/var; ``decoder_state``'s
-  ``baseline`` becomes a buffer of the same name.
+  ``baseline`` becomes a buffer of the same name;
+* an SRU cell's ``weight`` (rows, bidir*d*k) is used as ``x @ weight`` on
+  both sides and passes untransposed (it is no Dense ``kernel``); the SRU
+  stack's LayerNorms ``ln{i}`` rename ``scale`` to ``weight``.
 
 ``to_flax`` is the exact inverse (so a state trained by the port can be
 compared with, or read by, the JAX package) and ``grads_to_flax`` applies
@@ -25,10 +28,13 @@ the same map to the ``.grad`` fields.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
+
+from tpuseg_torch.nn.sru import SRUCell
 
 _COLLECTIONS = ("params", "batch_stats", "decoder_state")
 _BN_NAMES = {
@@ -51,9 +57,15 @@ def _is_conv_transpose(module_name: str) -> bool:
     return module_name.startswith("ConvTranspose") or module_name == "up"
 
 
+def _is_sru_layer_norm(module_name: str) -> bool:
+    return re.fullmatch(r"ln\d+", module_name) is not None
+
+
 def _convert(mod: str, leaf: str, a: np.ndarray) -> Tuple[str, np.ndarray]:
     if mod.startswith("BatchNorm"):
         return _BN_NAMES[leaf], a
+    if _is_sru_layer_norm(mod):
+        return {"scale": "weight"}.get(leaf, leaf), a
     if leaf != "kernel":
         return leaf, a
     if a.ndim == 2:
@@ -76,9 +88,10 @@ def from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             if col == "decoder_state":
                 key = ".".join(path)
             else:
-                name, a = _convert(path[-2], path[-1], a)
+                mod = path[-2] if len(path) > 1 else ""
+                name, a = _convert(mod, path[-1], a)
                 key = ".".join(path[:-1] + (name,))
-                if path[-2].startswith("BatchNorm") and name == "weight":
+                if mod.startswith("BatchNorm") and name == "weight":
                     sd[".".join(path[:-1] + ("num_batches_tracked",))] = (
                         torch.zeros((), dtype=torch.long)
                     )
@@ -101,6 +114,10 @@ def _unconvert(owner, mod: str, name: str, a: np.ndarray):
         leaf = {v: k for k, v in _BN_NAMES.items()}[name]
         col = "batch_stats" if leaf in ("mean", "var") else "params"
         return col, leaf, a
+    if isinstance(owner, torch.nn.LayerNorm):
+        return "params", {"weight": "scale"}.get(name, name), a
+    if isinstance(owner, SRUCell):
+        return "params", name, a
     if name == "baseline":
         return "decoder_state", name, a
     if name in dict(owner.named_buffers(recurse=False)):
