@@ -10,7 +10,10 @@ Builds the port's CUDA kernels (``ir_chain``, ``masked_softmax``,
 1. holds the ``ir_chain`` kernel against its plain PyTorch version at the
    five main-path shapes (decode batch 128 = 32 images x 4 glimpses), in
    float32 and bfloat16, with and without the mid-chain skip, and times
-   both;
+   both (CUDA events per chain, ``torch.profiler`` device time per launch,
+   the share of the bound); then at ``RAGGED_SHAPES`` at every width
+   (tiles cut by the image edge, N = 1, fewer tiles than a persistent grid
+   has blocks);
 2. runs the batched-inference path end to end in float32 on 4 synthetic
    256x256 images on the card (kernel) and on the CPU (plain version), with
    the committed checkpoint and stopping rule: counts must be equal and
@@ -80,6 +83,9 @@ N_DECODE = 128  # B * G on the main path
 # window: three full-canvas levels, then the two windowed ones
 MAIN_SHAPES = [(0, 16, 16, 256), (1, 32, 32, 128), (2, 64, 64, 64),
                (3, 96, 96, 32), (4, 192, 192, 32)]
+# (N, H, W) held against the plain version at every width: H, W not
+# multiples of any tile; N = 1 with fewer tiles than a persistent grid
+RAGGED_SHAPES = [(5, 20, 28), (3, 40, 24), (1, 20, 28)]
 
 
 def log(*a):
@@ -138,6 +144,8 @@ def phase_kernel_vs_plain(model, dev):
         ir_chain, ir_chain_plain, stack_chain_params,
     )
 
+    KERNEL_NAME = {torch.float32: "ir_block_kernel",
+                   torch.bfloat16: "ir_block_tc_kernel"}
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     levels = model.decoder.bone.levels
@@ -173,22 +181,65 @@ def phase_kernel_vs_plain(model, dev):
                 iters = max(3, min(50, int(2e8 // (N_DECODE * h * w * c))))
                 k_ms = cuda_ms(lambda: ir_chain(x, skip, *params), iters)
                 p_ms = cuda_ms(lambda: ir_chain_plain(x, skip, *params), iters)
+                # device time of one launch (one block of the chain)
+                dev_ms = kernel_device_ms(
+                    lambda: ir_chain(x, skip, *params), 3,
+                    KERNEL_NAME[dtype])
                 b_ms, o_ms = chain_bound(N_DECODE, h, w, c, name,
                                          skip is not None)
                 rows.append({
                     "level": lvl, "shape": [N_DECODE, h, w, c], "dtype": name,
                     "skip": skip is not None, "ms": k_ms, "plain_ms": p_ms,
+                    "device_ms_per_launch": None if dev_ms is None
+                    else dev_ms / 4,
                     "bound_ms": max(b_ms, o_ms), "bytes_ms": b_ms,
                     "ops_ms": o_ms,
                     "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                    "bound_share": max(b_ms, o_ms) / k_ms,
                     "max_abs_err": err, "max_abs_y": scale,
                 })
                 r = rows[-1]
+                dev_txt = ("not traced" if dev_ms is None
+                           else f"{r['device_ms_per_launch']:.4f} ms")
                 log(f"  ir_chain L{lvl} {r['shape']} {name} skip={r['skip']}: "
-                    f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
-                    f"{r['bound_ms']:.4f} ms, max|err| {err:.3e} "
+                    f"kernel {k_ms:.3f} ms ({r['bound_share']:.1%} of its "
+                    f"bound), device per launch {dev_txt}, plain {p_ms:.3f} "
+                    f"ms, bound {r['bound_ms']:.4f} ms, max|err| {err:.3e} "
                     f"(max|y| {scale:.3e})")
         del x32, s32
+    # ragged tiles, N = 1 and fewer tiles than a persistent grid has
+    # blocks: the level of each width, both types, with and without the skip
+    ragged = []
+    for lvl, c in ((0, 256), (1, 128), (2, 64), (3, 32)):
+        blocks = [levels[lvl].dil1a, levels[lvl].dil1b, levels[lvl].dil2a,
+                  levels[lvl].dil2b]
+        for dtype in (torch.float32, torch.bfloat16):
+            params = [t.to(dev) for t in stack_chain_params(blocks, dtype)]
+            p32 = [t.float() for t in params]
+            for n, h, w in RAGGED_SHAPES:
+                x = torch.randn(n, h, w, c, generator=g).to(dev, dtype)
+                s = torch.randn(n, h, w, c, generator=g).to(dev, dtype)
+                for skip in (None, s):
+                    got = ir_chain(x, skip, *params)
+                    torch.cuda.synchronize()
+                    want = ir_chain_plain(x.float(), None if skip is None
+                                          else skip.float(), *p32)
+                    err = (got.float() - want).abs().max().item()
+                    scale = want.abs().max().item()
+                    tol = 1e-4 if dtype == torch.float32 else 2e-2
+                    if not err <= tol * scale:
+                        raise AssertionError(
+                            f"ir_chain {dtype} C={c} ({n},{h},{w}) skip="
+                            f"{skip is not None}: max|err| {err:.3e} > {tol}"
+                            f" * max|y| {scale:.3e}")
+                    ragged.append(err / scale)
+                    if dtype == torch.float32:
+                        max_abs_f32 = max(max_abs_f32, err)
+                    else:
+                        max_rel_bf16 = max(max_rel_bf16, err / scale)
+    log(f"  ir_chain ragged / N=1 / few-tile shapes {RAGGED_SHAPES} x C in "
+        f"(256, 128, 64, 32) x f32, bf16 x skip: {len(ragged)} cases within "
+        f"tolerance, max|err|/max|y| {max(ragged):.3e}")
     torch.cuda.empty_cache()
     return rows, max_abs_f32, max_rel_bf16
 
@@ -1173,6 +1224,8 @@ def main() -> int:
         "bound_by": "bytes" if sum(r["bytes_ms"] for r in path_rows)
         >= sum(r["ops_ms"] for r in path_rows) else "operations",
         "library_ms": None,
+        # levels 0-4: device time of one launch (one block of the chain)
+        "device_ms_per_launch": [r["device_ms_per_launch"] for r in path_rows],
         "launches_validation_decode": train["launches"]["ir_chain"],
     }, {
         "name": "masked_softmax",

@@ -28,6 +28,9 @@ CHANNELS = (256, 128, 64, 32, 32)
 BLOCKS = ("dil1a", "dil1b", "dil2a", "dil2b")
 # (pyramid level, H, W); 13 rows is not a multiple of any tile height
 SHAPES = [(0, 8, 8), (1, 8, 16), (2, 13, 12), (3, 16, 16), (4, 24, 24)]
+# (N, H, W) at every width on the card: H, W not multiples of the tiles,
+# and N = 1 with fewer tiles than a persistent grid has blocks
+RAGGED = [(5, 20, 28), (3, 40, 24), (1, 20, 28)]
 
 
 @pytest.fixture(scope="module")
@@ -106,15 +109,26 @@ def test_wrapper_takes_plain_on_cpu_without_counting(ckpt):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_on_card(ckpt, dtype):
     """f32: |err| <= 1e-4 max|y| (summation order).  bf16 storage: against
-    the f32 plain result on the same rounded inputs, <= 2e-2 max|y|."""
+    the f32 plain result on the same rounded inputs, <= 2e-2 max|y|.  The
+    main-path levels at small sizes, then ``RAGGED`` at each width (levels
+    0-3) with and without the mid-chain skip."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     tol = 1e-4 if dtype == torch.float32 else 2e-2
-    for lvl, h, w in SHAPES + [(2, 64, 64), (4, 96, 96)]:
-        x, x1u = _inputs(lvl, 3, h, w, seed=10 + lvl)
+    cases = [(lvl, 3, h, w, lvl > 0)
+             for lvl, h, w in SHAPES + [(2, 64, 64), (4, 96, 96)]]
+    cases += [(lvl, n, h, w, skip) for lvl in range(4)
+              for n, h, w in RAGGED for skip in (False, True)]
+    for lvl, n, h, w, with_skip in cases:
+        x, x1u = _inputs(lvl, n, h, w, seed=10 + lvl)
+        if with_skip and x1u is None:
+            x1u = np.random.default_rng(lvl).normal(
+                size=x.shape).astype(np.float32)
+        if not with_skip:
+            x1u = None
         params = [t.to(dev) for t in _torch_params(ckpt, lvl, dtype)]
         xs = torch.from_numpy(x).to(dev, dtype)
         x1s = None if x1u is None else torch.from_numpy(x1u).to(dev, dtype)
@@ -126,4 +140,5 @@ def test_kernel_matches_plain_on_card(ckpt, dtype):
         )
         err = (got.float() - want).abs().max().item()
         scale = want.abs().max().item()
-        assert err <= tol * scale, (lvl, h, w, dtype, err, scale)
+        assert err <= tol * scale, (lvl, n, h, w, with_skip, dtype, err,
+                                    scale)

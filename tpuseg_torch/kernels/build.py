@@ -19,7 +19,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -59,29 +59,35 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     output if one fails; keeps each log (ptxas register/spill report) in
     ``build_logs``."""
     names = tuple(names or KERNELS)
+    jobs = {name: (source(name), library_path(name)) for name in names
+            if not library_path(name).exists()}
+    compile_all(jobs)
+    return {name: library_path(name) for name in names}
+
+
+def compile_all(jobs: Dict[str, Tuple[Path, Path]]) -> None:
+    """Compile ``{label: (source, library)}``, one ``nvcc`` per source, all
+    started together; keeps each log in ``build_logs[label]`` and raises
+    with the compiler's output if one fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source(name))]
-        procs[name] = (subprocess.Popen(
+    for label, (src, out) in jobs.items():
+        tmp = Path(out).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs[label] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ), tmp, out)
     failed = []
-    for name, (proc, tmp, out) in procs.items():
+    for label, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
-        build_logs[name] = log
+        build_logs[label] = log
         if proc.returncode != 0:
-            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
+            failed.append(f"--- {label} (nvcc exit {proc.returncode})\n{log}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return {name: library_path(name) for name in names}
 
 
 def load(name: str) -> ctypes.CDLL:
