@@ -27,9 +27,11 @@ Builds the port's CUDA kernels (``ir_chain``, ``masked_softmax``,
 4. holds the ``masked_softmax`` kernels, forward and backward, against
    their plain PyTorch version at ``(B, N, HW)`` = (2, 32, 65536) and
    (8, 32, 65536) with the instance masks of synthetic scenes (empty
-   slots, sizes that vary) and at an odd ``HW``, and times them beside the
-   plain version, ``torch.softmax`` on pre-masked logits and the bytes
-   bound;
+   slots, sizes that vary) and at an odd ``HW``, the backward with a dense
+   cotangent and with the training path's (``SOFTMAX_K`` rows per sample
+   nonzero), and times them beside the plain version, ``torch.softmax`` on
+   pre-masked logits, ``torch._softmax_backward_data`` and the bytes bound
+   of each cotangent;
 5. runs two float32 train steps at full width (B=2, deterministic
    glimpses, no dropout) on the card (kernels) and on the CPU (plain
    versions), each from equal weights: glimpse points equal, metrics
@@ -49,15 +51,17 @@ Builds the port's CUDA kernels (``ir_chain``, ``masked_softmax``,
    one 1024-step sequence; forward within 2e-5, backward within rtol 3e-4 /
    atol 3e-5 of the written-out backward and (35 steps) of autograd through
    the plain loop, weight gradients bit-equal over two runs; times both
-   beside the bytes bound;
+   (device time, and the host time of a wrapper call) beside the bytes
+   bound;
 8. runs the 6-layer uni and bidirectional ``SRU`` stacks at that width in
    float32 (TF32 off), forward and backward, on the card (kernels) and on
    the CPU (plain loop) from one set of weights and inputs;
 9. drives the SRU training path: 3 SGD steps of the 6-layer uni stack
    (``rnn_dropout`` and ``dropout`` 0.2 from a seeded generator) on a
    fixed random target, with the SRU launch counters reset just before and
-   read just after: 6 forward and 6 backward calls per step; prints ms per
-   step with the GEMMs' and the scans' share (``torch.profiler``).
+   read just after: 6 forward and 6 backward calls per step (one launch
+   each); prints ms per step with the GEMMs' and the scans' share
+   (``torch.profiler``).
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises: the
@@ -184,7 +188,7 @@ def phase_kernel_vs_plain(model, dev):
                 # device time of one launch (one block of the chain)
                 dev_ms = kernel_device_ms(
                     lambda: ir_chain(x, skip, *params), 3,
-                    KERNEL_NAME[dtype])
+                    KERNEL_NAME[dtype], launches=4)
                 b_ms, o_ms = chain_bound(N_DECODE, h, w, c, name,
                                          skip is not None)
                 rows.append({
@@ -244,22 +248,76 @@ def phase_kernel_vs_plain(model, dev):
     return rows, max_abs_f32, max_rel_bf16
 
 
-def softmax_bound_ms(b, n, hw):
+def softmax_bound_ms(b, n, hw, active=None):
     """Bytes bounds (forward, backward) in ms: each input read once, each
     output written once, at the card's memory rate.  Forward reads e and
-    the float32 mask and writes p; backward reads p and g and writes de."""
+    the float32 mask and writes p; backward reads g, p where g is nonzero
+    (``active`` rows of the B*N, all of them when None) and writes de."""
+    active = b * n if active is None else active
     fwd = b * hw * 4 + b * n * hw * 8
-    bwd = 2 * b * n * hw * 4 + b * hw * 4
+    bwd = b * n * hw * 4 + active * hw * 4 + b * hw * 4
     return 1e3 * fwd / PEAK_BYTES, 1e3 * bwd / PEAK_BYTES
 
 
-def phase_masked_softmax(dev):
-    """masked_softmax kernels vs plain at the training path's shapes."""
+SOFTMAX_K = 2  # instances per sample that the training loss differentiates
+
+
+def softmax_cotangent(mask, kind, seed):
+    """(g (B, N, HW) on mask's device, its count of nonzero rows).  "dense":
+    every element N(0, 1).  "main": as the training path gives it (only the
+    instances the glimpse loop picked get a cotangent): ``SOFTMAX_K`` rows
+    per sample picked by a seeded permutation among its non-empty
+    instances, N(0, 1), every other row exact zeros."""
+    import torch
+
+    b, n, hw = mask.shape
+    gen = torch.Generator().manual_seed(seed)
+    g = torch.randn(b, n, hw, generator=gen)
+    if kind == "dense":
+        return g.to(mask.device), b * n
+    nonempty = (mask.sum(dim=-1) > 0).cpu()
+    keep = torch.zeros(b, n, dtype=torch.bool)
+    for i in range(b):
+        rows = torch.nonzero(nonempty[i])[:, 0]
+        keep[i, rows[torch.randperm(len(rows), generator=gen)[:SOFTMAX_K]]] = (
+            True)
+    g = torch.where(keep[..., None], g, torch.zeros(()))
+    return g.to(mask.device), int(keep.sum())
+
+
+def softmax_inputs(rng, gen, b, side, dev):
+    """(e (B, HW), mask (B, 32, HW), empty instance count) on ``dev``: the
+    instance masks of ``b`` synthetic scenes cut to ``side`` x ``side``
+    (empty slots, sizes that vary) and scores N(0, 9) on the foreground."""
     import torch
 
     from tpuseg_torch.data.synthetic import make_batch
+
+    batch = make_batch(rng, b, 256, 256, 32, hard=True)
+    ins = torch.from_numpy(batch["ins_masks"][:, :side, :side])
+    n, hw = ins.shape[-1], side * side
+    mask = ins.permute(0, 3, 1, 2).reshape(b, n, hw).contiguous().to(dev)
+    empty = int((mask.sum(dim=-1) == 0).sum())
+    sem = (mask.sum(dim=1) > 0).float()
+    e = (3.0 * torch.randn(b, hw, generator=gen)).to(dev) * sem
+    return e, mask, empty
+
+
+def sm_kernel_ms(row, sfx):
+    """Forward + backward kernel time of a ``phase_masked_softmax`` row
+    (the backward with cotangent ``sfx``): device time where the profiler
+    traced it, else the event time."""
+    fwd = row["forward_device_ms"] or row["forward_ms"]
+    return fwd + (row["backward_device_ms" + sfx] or row["backward_ms" + sfx])
+
+
+def phase_masked_softmax(dev):
+    """masked_softmax kernels vs plain at the training path's shapes, the
+    backward with a dense g and with the training path's g."""
+    import torch
+
     from tpuseg_torch.kernels.masked_softmax import (
-        masked_softmax, masked_softmax_backward,
+        BACKWARD_LAUNCHES, masked_softmax, masked_softmax_backward,
         masked_softmax_backward_plain, masked_softmax_plain,
     )
 
@@ -267,60 +325,88 @@ def phase_masked_softmax(dev):
     rng = np.random.default_rng(11)
     g_cpu = torch.Generator(device="cpu").manual_seed(1)
     for b, side in ((2, 256), (8, 256), (2, 255)):
-        batch = make_batch(rng, b, 256, 256, 32, hard=True)
-        ins = torch.from_numpy(batch["ins_masks"][:, :side, :side])
-        n, hw = ins.shape[-1], side * side
-        mask = ins.permute(0, 3, 1, 2).reshape(b, n, hw).contiguous().to(dev)
-        empty = int((mask.sum(dim=-1) == 0).sum())
-        sem = (mask.sum(dim=1) > 0).float()
-        e = (3.0 * torch.randn(b, hw, generator=g_cpu)).to(dev) * sem
-        g = torch.randn(b, n, hw, generator=g_cpu).to(dev)
-        ek = e.clone().requires_grad_()
-        pk = masked_softmax(ek, mask)
-        (dk,) = torch.autograd.grad(pk, ek, g)
-        torch.cuda.synchronize()
-        ep = e.clone().requires_grad_()
-        pp = masked_softmax_plain(ep, mask)
-        (dp,) = torch.autograd.grad(pp, ep, g)
-        p_err = (pk - pp).abs().max().item()
-        de_err = (dk - dp).abs().max().item()
-        de_scale = dp.abs().max().item()
-        if not (torch.isfinite(pk).all() and torch.isfinite(dk).all()):
+        e, mask, empty = softmax_inputs(rng, g_cpu, b, side, dev)
+        n, hw = mask.shape[1], side * side
+        row = {"shape": [b, n, hw], "empty_instances": empty}
+        with torch.no_grad():
+            pk_d = masked_softmax(e, mask)
+            pp_d = masked_softmax_plain(e, mask)
+        if not torch.isfinite(pk_d).all():
             raise AssertionError("masked_softmax: non-finite output")
+        p_err = (pk_d - pp_d).abs().max().item()
         if not p_err <= 1e-6:
             raise AssertionError(
                 f"masked_softmax ({b},{n},{hw}): max|p err| {p_err:.3e} > 1e-6")
-        if not de_err <= 1e-5 * de_scale:
-            raise AssertionError(
-                f"masked_softmax ({b},{n},{hw}): max|de err| {de_err:.3e} > "
-                f"1e-5 * max|de| {de_scale:.3e}")
         max_p_err = max(max_p_err, p_err)
-        max_de_rel = max(max_de_rel, de_err / de_scale)
-        # timings
+        # timings, forward
         logits = torch.where(mask > 0, e[:, None, :],
                              torch.full_like(e[:, None, :], -1e30))
         with torch.no_grad():
-            pk_d = masked_softmax(e, mask)
-            f_ms = cuda_ms(lambda: masked_softmax(e, mask), 20)
-            pf_ms = cuda_ms(lambda: masked_softmax_plain(e, mask), 20)
-            lib_ms = cuda_ms(lambda: torch.softmax(logits, dim=-1), 20)
-            # the backward launches themselves (autograd's own host time
-            # per call would outlast two kernels this short)
-            b_ms = cuda_ms(lambda: masked_softmax_backward(pk_d, g), 20)
-            pb_ms = cuda_ms(lambda: masked_softmax_backward_plain(pk_d, g), 20)
-        bf, bb = softmax_bound_ms(b, n, hw)
-        rows.append({
-            "shape": [b, n, hw], "empty_instances": empty,
-            "forward_ms": f_ms, "backward_ms": b_ms,
-            "plain_forward_ms": pf_ms, "plain_backward_ms": pb_ms,
-            "torch_softmax_ms": lib_ms, "bound_forward_ms": bf,
-            "bound_backward_ms": bb,
-        })
-        log(f"  masked_softmax {rows[-1]['shape']} ({empty} empty instances):"
-            f" forward {f_ms:.3f} ms (plain {pf_ms:.3f}, torch.softmax on "
-            f"masked logits {lib_ms:.3f}, bound {bf:.4f}), backward "
-            f"{b_ms:.3f} ms (plain {pb_ms:.3f}, bound {bb:.4f})")
-        del logits, pk_d, g, e, mask
+            row["forward_ms"] = cuda_ms(lambda: masked_softmax(e, mask), 20)
+            row["forward_device_ms"] = kernel_device_ms(
+                lambda: masked_softmax(e, mask), 10, "masked_softmax_fwd")
+            row["plain_forward_ms"] = cuda_ms(
+                lambda: masked_softmax_plain(e, mask), 20)
+            row["torch_softmax_ms"] = cuda_ms(
+                lambda: torch.softmax(logits, dim=-1), 20)
+        del logits
+        row["bound_forward_ms"], _ = softmax_bound_ms(b, n, hw)
+        for kind in ("dense", "main"):
+            g, active = softmax_cotangent(mask, kind, seed=b * 1000 + side)
+            ek = e.clone().requires_grad_()
+            (dk,) = torch.autograd.grad(masked_softmax(ek, mask), ek, g)
+            torch.cuda.synchronize()
+            ep = e.clone().requires_grad_()
+            (dp,) = torch.autograd.grad(masked_softmax_plain(ep, mask), ep, g)
+            de_err = (dk - dp).abs().max().item()
+            de_scale = dp.abs().max().item()
+            if not torch.isfinite(dk).all():
+                raise AssertionError("masked_softmax: non-finite gradient")
+            if not de_err <= 1e-5 * de_scale:
+                raise AssertionError(
+                    f"masked_softmax ({b},{n},{hw}) {kind} g: max|de err| "
+                    f"{de_err:.3e} > 1e-5 * max|de| {de_scale:.3e}")
+            max_de_rel = max(max_de_rel, de_err / de_scale)
+            sfx = "" if kind == "dense" else "_main"
+            with torch.no_grad():
+                # the backward launches themselves (autograd's own host
+                # time per call would outlast two kernels this short)
+                row["backward_ms" + sfx] = cuda_ms(
+                    lambda: masked_softmax_backward(pk_d, g), 20)
+                row["backward_device_ms" + sfx] = kernel_device_ms(
+                    lambda: masked_softmax_backward(pk_d, g), 10,
+                    "masked_softmax_", launches=BACKWARD_LAUNCHES)
+                row["plain_backward_ms" + sfx] = cuda_ms(
+                    lambda: masked_softmax_backward_plain(pk_d, g), 20)
+                # the per-row part of the backward, p * (g - sum p g); the
+                # sum over the instances is extra
+                row["library_backward_ms" + sfx] = cuda_ms(
+                    lambda: torch._softmax_backward_data(
+                        g, pk_d, -1, torch.float32), 20)
+            row["bound_backward_ms" + sfx] = softmax_bound_ms(
+                b, n, hw, active)[1]
+            row["active_rows" + sfx] = active
+            row["max_de_rel_err" + sfx] = de_err / de_scale
+            del g, ek, ep, dk, dp
+        row["max_p_err"] = p_err
+        rows.append(row)
+        r = row
+        log(f"  masked_softmax {r['shape']} ({empty} empty instances): "
+            f"forward {r['forward_ms']:.4f} ms (plain "
+            f"{r['plain_forward_ms']:.3f}, torch.softmax on masked logits "
+            f"{r['torch_softmax_ms']:.4f}, bound {r['bound_forward_ms']:.4f})"
+            f"; backward dense g {r['backward_ms']:.4f} ms (plain "
+            f"{r['plain_backward_ms']:.3f}, torch._softmax_backward_data "
+            f"{r['library_backward_ms']:.4f}, bound "
+            f"{r['bound_backward_ms']:.4f}); backward main-path g "
+            f"({r['active_rows_main']} of {b * n} rows nonzero) "
+            f"{r['backward_ms_main']:.4f} ms (plain "
+            f"{r['plain_backward_ms_main']:.3f}, library "
+            f"{r['library_backward_ms_main']:.4f}, bound "
+            f"{r['bound_backward_ms_main']:.4f}); device ms per call: "
+            f"forward {r['forward_device_ms']}, backward dense "
+            f"{r['backward_device_ms']}, main {r['backward_device_ms_main']}")
+        del pk_d, pp_d, e, mask
     torch.cuda.empty_cache()
     return rows, max_p_err, max_de_rel
 
@@ -594,7 +680,7 @@ def phase_train_timed(cfg, model, dev, softmax_rows):
     shutil.rmtree(run_dir, ignore_errors=True)
 
     row8 = [r for r in softmax_rows if r["shape"][0] == B][0]
-    k_ms = row8["forward_ms"] + row8["backward_ms"]
+    k_ms = sm_kernel_ms(row8, "_main")
     ms_step = 1e3 * dt / n_steps
     log(f"phase train-timed (256x256 full width, B={B}, bf16 autocast, "
         f"sampling + dropout, remat): {n_steps / dt:.3f} steps/s, "
@@ -638,11 +724,30 @@ def bytes_ms(*tensors):
     return 1e3 * moved / PEAK_BYTES
 
 
-def kernel_device_ms(fn, calls, name_part):
+def host_ms(fn, calls):
+    """Host time per call: ``calls`` back-to-back calls on the host clock,
+    the queue drained before and after (valid where a call's host work
+    outlasts its kernels, as the wrappers' do at L = 35)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return 1e3 * dt / calls
+
+
+def kernel_device_ms(fn, calls, name_part, launches=1):
     """Device time per call of the kernels whose name holds ``name_part``,
-    from ``torch.profiler`` over ``calls`` calls, or None when the trace
-    holds none.  Where a kernel takes tens of microseconds, back-to-back
-    calls timed with events read the pace of the Python wrapper instead."""
+    ``launches`` launches per call, from ``torch.profiler`` over ``calls``
+    calls, or None when the trace holds none.  Per kernel name it takes the
+    mean time of the launches the trace recorded (a trace may miss some),
+    sums the names' means and scales the sum to ``launches`` launches.
+    Where a kernel takes tens of microseconds, back-to-back calls timed with
+    events read the pace of the Python wrapper instead."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -653,10 +758,16 @@ def kernel_device_ms(fn, calls, name_part):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.device_time for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and name_part in e.name)
-    return us / 1e3 / calls if us > 0 else None
+    per_name = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and name_part in e.name):
+            us, n = per_name.get(e.name, (0.0, 0))
+            per_name[e.name] = (us + e.device_time, n + 1)
+    if not per_name:
+        return None
+    means = sum(us / n for us, n in per_name.values())
+    return means * launches / len(per_name) / 1e3
 
 
 def within(got, want, rtol, atol, what):
@@ -715,7 +826,8 @@ def phase_sru_kernels(dev):
     import torch
 
     from tpuseg_torch.kernels.sru_scan import (
-        sru_scan_backward, sru_scan_backward_plain, sru_scan_forward,
+        BACKWARD_LAUNCHES, sru_scan_backward, sru_scan_backward_plain,
+        sru_scan_forward,
     )
     from tpuseg_torch.nn import sru_recurrence
     from tpuseg_torch.nn.sru import sru_states
@@ -781,7 +893,9 @@ def phase_sru_kernels(dev):
         with torch.no_grad():
             fc_ms, bc_ms = cuda_ms(fwd, 20), cuda_ms(bwd, 20)
             f_ms = kernel_device_ms(fwd, 10, "sru_") or fc_ms
-            b_ms = kernel_device_ms(bwd, 10, "sru_") or bc_ms
+            b_ms = kernel_device_ms(bwd, 10, "sru_",
+                                    launches=BACKWARD_LAUNCHES) or bc_ms
+            fh_ms, bh_ms = host_ms(fwd, 50), host_ms(bwd, 50)
             pf_ms = cuda_ms(lambda: sru_states(*args[:5], **kw), p_iters, 1)
             pb_ms = cuda_ms(lambda: sru_scan_backward_plain(
                 *args, c_all, gh, gcf, *spec), p_iters, 1)
@@ -795,14 +909,16 @@ def phase_sru_kernels(dev):
             "activation": act, "mask_c": mc, "mask_pad": pad,
             "forward_ms": f_ms, "backward_ms": b_ms,
             "forward_call_ms": fc_ms, "backward_call_ms": bc_ms,
+            "forward_host_ms": fh_ms, "backward_host_ms": bh_ms,
             "plain_forward_ms": pf_ms, "plain_backward_ms": pb_ms,
             "bound_forward_ms": bf, "bound_backward_ms": bb,
             "max_abs_err_forward": err_f, "max_abs_err_backward": err_b,
         })
-        log(f"  {label}: forward {f_ms:.4f} ms (call {fc_ms:.4f}, plain "
-            f"{pf_ms:.3f}, bound {bf:.4f}), backward {b_ms:.4f} ms (call "
-            f"{bc_ms:.4f}, plain {pb_ms:.3f}, bound {bb:.4f}); max|err| "
-            f"forward {err_f:.2e} backward {err_b:.2e}")
+        log(f"  {label}: forward {f_ms:.4f} ms (call {fc_ms:.4f}, host "
+            f"{fh_ms:.4f}, plain {pf_ms:.3f}, bound {bf:.4f}), backward "
+            f"{b_ms:.4f} ms (call {bc_ms:.4f}, host {bh_ms:.4f}, plain "
+            f"{pb_ms:.3f}, bound {bb:.4f}); max|err| forward {err_f:.2e} "
+            f"backward {err_b:.2e}")
         del a, args, h, c_all, got, again, want
     torch.cuda.empty_cache()
     return rows, max_fwd, max_bwd
@@ -929,10 +1045,15 @@ def phase_sru_train(dev):
         if got != (layers * FORWARD_LAUNCHES, layers * BACKWARD_LAUNCHES):
             raise AssertionError(
                 f"SRU train step {i}: launches forward/backward {got}, want "
-                f"{layers} forward and {layers} backward calls")
+                f"{layers} forward and {layers} backward calls of "
+                f"{FORWARD_LAUNCHES} and {BACKWARD_LAUNCHES} launches")
     counts = {"forward": sru_scan.forward_launches,
               "backward": sru_scan.backward_launches,
               "total": sru_scan.launches}
+    want_total = 3 * layers * (FORWARD_LAUNCHES + BACKWARD_LAUNCHES)
+    if counts["total"] != want_total:
+        raise AssertionError(f"SRU train: {counts['total']} launches in 3 "
+                             f"steps, want {want_total}")
     if not np.isfinite(losses).all():
         raise AssertionError(f"SRU train losses not finite: {losses}")
     # where a step's device time goes: two more steps under the profiler
@@ -1040,10 +1161,12 @@ def main() -> int:
     small, _, _, _ = make_images(4, seed=3)
     p_cpu = Predictor(cfg, copy.deepcopy(model), batch_size=4, device="cpu",
                       dtype=torch.float32, stop_params=stop)
-    _, fg_c, id_c, n_c = p_cpu.predict_batch_arrays(small)
+    _, fg_c, id_c, n_c = p_cpu.predict_batch_arrays(small, with_probs=False)
     p_f32 = Predictor(cfg, copy.deepcopy(model), batch_size=32, device=dev,
                       dtype=torch.float32, stop_params=stop)
-    _, fg_g, id_g, n_g = p_f32.predict_batch_arrays(small)
+    before = ir_chain.launches
+    _, fg_g, id_g, n_g = p_f32.predict_batch_arrays(small, with_probs=False)
+    f32_parity_launches = ir_chain.launches - before
     n_g, id_g, fg_g = n_g.cpu(), id_g.cpu(), fg_g.cpu()
     agree = (id_g == id_c).float().mean().item()
     log(f"phase e2e-f32: counts card {n_g.tolist()} cpu {n_c.tolist()}, "
@@ -1107,11 +1230,18 @@ def main() -> int:
     # the same images through the f32 card predictor, and through bf16
     # without the per-round done-sync (always all rounds)
     p_f32.rounds_run = 0
+    before = ir_chain.launches
     outs32, dt_f32 = run(p_f32, "f32")
+    f32_launches = ir_chain.launches - before
+    if f32_launches != 5 * 4 * p_f32.rounds_run:
+        raise AssertionError(
+            f"f32 ir_chain launches {f32_launches} != 5 levels x 4 blocks x "
+            f"{p_f32.rounds_run} rounds")
     counts_f32 = np.concatenate([o[1] for o in outs32])
     log(f"bf16-vs-f32 count agreement {np.mean(counts_f32 == counts_bf16):.4f}"
         f" (mean |diff| {np.abs(counts_f32 - counts_bf16).mean():.4f}); f32 "
-        f"rounds {p_f32.rounds_run}")
+        f"rounds {p_f32.rounds_run}, f32 ir_chain launches {f32_launches} "
+        f"(and {f32_parity_launches} in the 4-image card-vs-CPU run)")
     pred.sync_rounds = False
     pred.rounds_run = 0
     outs_ns, dt_nosync = run(pred, "bf16, all rounds, no per-round sync")
@@ -1142,6 +1272,8 @@ def main() -> int:
     # level but the first
     path_rows = [r for r in rows
                  if r["dtype"] == "bfloat16" and r["skip"] == (r["level"] > 0)]
+    f32_rows = [r for r in rows
+                if r["dtype"] == "float32" and r["skip"] == (r["level"] > 0)]
     chain_round_ms = sum(r["ms"] for r in path_rows)
     log(f"batch 0 breakdown (bf16): preprocess+backbone+prep {prep_ms:.1f} ms,"
         f" extraction {ext_ms:.1f} ms over {r1} rounds; ir_chain "
@@ -1227,6 +1359,15 @@ def main() -> int:
         # levels 0-4: device time of one launch (one block of the chain)
         "device_ms_per_launch": [r["device_ms_per_launch"] for r in path_rows],
         "launches_validation_decode": train["launches"]["ir_chain"],
+        # the float32 instance (f32 inference, the card-vs-CPU runs): per
+        # level of the main path's calls, ms per chain call and bound
+        "f32_ms_per_level": [r["ms"] for r in f32_rows],
+        "f32_device_ms_per_launch": [r["device_ms_per_launch"]
+                                     for r in f32_rows],
+        "f32_bound_ms_per_level": [r["bound_ms"] for r in f32_rows],
+        "f32_plain_ms_per_level": [r["plain_ms"] for r in f32_rows],
+        "launches_f32_inference": f32_launches,
+        "launches_f32_parity": f32_parity_launches,
     }, {
         "name": "masked_softmax",
         "route": "cuda",
@@ -1241,16 +1382,26 @@ def main() -> int:
         "max_abs_err": sm_p_err,
         "max_rel_err_backward": sm_de_rel,
         # one train step's calls at the timed path's shape (8, 32, 65536):
-        # forward + backward; the library call is the forward alone
-        "ms": sm8["forward_ms"] + sm8["backward_ms"],
-        "forward_ms": sm8["forward_ms"],
-        "backward_ms": sm8["backward_ms"],
-        "plain_ms": sm8["plain_forward_ms"] + sm8["plain_backward_ms"],
-        "bound_ms": sm8["bound_forward_ms"] + sm8["bound_backward_ms"],
+        # forward + backward with the training path's g (K rows per
+        # sample nonzero), device time (profiler; events over back-to-back
+        # calls read the wrapper's host pace); the dense-g backward beside
+        "ms": sm_kernel_ms(sm8, "_main"),
+        "forward_ms": sm8["forward_device_ms"],
+        "backward_ms": sm8["backward_device_ms_main"],
+        "backward_dense_g_ms": sm8["backward_device_ms"],
+        "event_ms": {k: sm8[k] for k in (
+            "forward_ms", "backward_ms_main", "backward_ms")},
+        "plain_ms": sm8["plain_forward_ms"] + sm8["plain_backward_ms_main"],
+        "bound_ms": sm8["bound_forward_ms"] + sm8["bound_backward_ms_main"],
+        "bound_backward_dense_g_ms": sm8["bound_backward_ms"],
+        "active_rows": sm8["active_rows_main"],
         "bound_by": "bytes",
-        "library_ms": sm8["torch_softmax_ms"],
+        "library_ms": sm8["torch_softmax_ms"]
+        + sm8["library_backward_ms_main"],
         "library_call": "torch.softmax(logits, dim=-1) on already-masked "
-                        "(B, N, HW) logits, forward only",
+                        "(B, N, HW) logits + torch._softmax_backward_data(g, "
+                        "p, -1, float32) (the per-row part; the sum over "
+                        "the instances is extra)",
     }, {
         "name": "sru_scan_forward",
         "route": "cuda",
@@ -1264,6 +1415,7 @@ def main() -> int:
         # time (profiler), and a call's time with the wrapper (events)
         "ms": sru_main["forward_ms"],
         "call_ms": sru_main["forward_call_ms"],
+        "host_ms_per_call": sru_main["forward_host_ms"],
         "plain_ms": sru_main["plain_forward_ms"],
         "bound_ms": sru_main["bound_forward_ms"],
         "bound_by": "bytes",
@@ -1274,12 +1426,14 @@ def main() -> int:
         "route": "cuda",
         "source": "tpuseg_torch/kernels/csrc/sru_scan.cu",
         "replaces": "tpuseg/kernels/sru_scan.py:375",
-        # two launches per layer and step: the reverse scan, the batch sum
+        # one launch per layer and step: the reverse scan, with the batch
+        # sum of the weight gradients folded in
         "launches": sru_train["launches"]["backward"],
         "checked": True,
         "max_abs_err": sru_bwd_err,
         "ms": sru_main["backward_ms"],
         "call_ms": sru_main["backward_call_ms"],
+        "host_ms_per_call": sru_main["backward_host_ms"],
         "plain_ms": sru_main["plain_backward_ms"],
         "bound_ms": sru_main["bound_backward_ms"],
         "bound_by": "bytes",

@@ -103,6 +103,53 @@ def test_plain_gradient_matches_jax_grad():
                                atol=1e-5 * np.abs(want).max())
 
 
+def _cotangent(mask, kind, seed, k=2):
+    """A cotangent of p (B, N, HW): "dense", N(0, 1) everywhere; "main", as
+    the training loss gives it: ``k`` rows per sample, picked by a seeded
+    permutation among the non-empty instances, N(0, 1), the rest exact
+    zeros; "empty", the same but one picked row is an empty instance."""
+    rng = np.random.default_rng(seed)
+    cot = rng.normal(size=mask.shape).astype(np.float32)
+    if kind == "dense":
+        return cot
+    keep = np.zeros(mask.shape[:2], bool)
+    for i, m in enumerate(mask):
+        rows = np.flatnonzero(m.sum(axis=-1) > 0)
+        keep[i, rng.permutation(rows)[:k]] = True
+        if kind == "empty":
+            keep[i, np.flatnonzero(m.sum(axis=-1) == 0)[0]] = True
+    return np.where(keep[..., None], cot, np.float32(0))
+
+
+@pytest.mark.parametrize("b,n,hw,kind", [
+    (2, 6, 1024, "main"), (3, 5, 1023, "main"), (2, 4, 258, "dense"),
+    (2, 6, 513, "empty"), (1, 32, 4096, "main")])
+def test_plain_backward_matches_jax_grad_sparse_g(b, n, hw, kind):
+    """The backward as training feeds it (few rows of g nonzero), at odd
+    HW and with empty instance slots: p within 1e-6 of the jnp path, the
+    backward formula and autograd within 1e-5 max|de| of ``jax.grad``."""
+    import jax
+    import jax.numpy as jnp
+
+    e, mask = _inputs(b, n, hw, seed=hw + n)
+    cot = _cotangent(mask, kind, seed=hw)
+    mask_j = jnp.asarray(mask.transpose(0, 2, 1))
+    cot_j = jnp.asarray(cot.transpose(0, 2, 1))
+    want_p = np.asarray(_jnp_path(jnp.asarray(e), mask_j)).transpose(0, 2, 1)
+    want = np.asarray(jax.grad(
+        lambda x: jnp.sum(_jnp_path(x, mask_j) * cot_j))(jnp.asarray(e)))
+    assert np.abs(want).max() > 0
+
+    et = torch.from_numpy(e).requires_grad_()
+    p = masked_softmax_plain(et, torch.from_numpy(mask))
+    np.testing.assert_allclose(p.detach().numpy(), want_p, atol=1e-6, rtol=0)
+    (p * torch.from_numpy(cot)).sum().backward()
+    tol = 1e-5 * np.abs(want).max()
+    np.testing.assert_allclose(et.grad.numpy(), want, rtol=0, atol=tol)
+    de = masked_softmax_backward_plain(p.detach(), torch.from_numpy(cot))
+    np.testing.assert_allclose(de.numpy(), want, rtol=0, atol=tol)
+
+
 def test_backward_formula_against_autograd_float64():
     """``torch.autograd.gradcheck`` of the plain version in float64 at a
     tiny size, and the hand-written backward formula against autograd."""
@@ -165,3 +212,53 @@ def test_kernel_matches_plain_on_card():
     with pytest.raises(ValueError):  # one mask type: float32
         masked_softmax(torch.zeros(2, 8, device=dev),
                        torch.zeros(2, 3, 8, device=dev, dtype=torch.uint8))
+
+
+@pytest.mark.cuda
+def test_kernel_branches_on_card():
+    """The kernels' branches: g with few nonzero rows (the training path's),
+    a picked row that is an empty instance, a NaN in an otherwise zero row
+    (counted as nonzero), all-empty rows (zeros without a read), and odd
+    HW, whose rows start at every alignment (scalar head, float4 body,
+    scalar tail).  Forward within 1e-6, backward within 1e-5 max|de|; de
+    bit-equal from run to run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpuseg_torch.kernels.masked_softmax import masked_softmax_backward
+
+    dev = torch.device("cuda")
+    for b, n, hw, kind in [(2, 32, 65536, "main"), (3, 6, 4099, "main"),
+                           (2, 5, 1030, "empty"), (2, 7, 1031, "dense"),
+                           (1, 3, 3, "dense"), (2, 4, 65025, "main")]:
+        e, mask = _inputs(b, n, hw, seed=hw % 997, empty=n >= 3)
+        cot = _cotangent(mask, kind, seed=hw % 991)
+        et = torch.from_numpy(e).to(dev)
+        mt = torch.from_numpy(mask).to(dev)
+        gt = torch.from_numpy(cot).to(dev)
+        p = masked_softmax(et, mt)
+        pr = masked_softmax_plain(et, mt)
+        assert (p - pr).abs().max().item() <= 1e-6, (b, n, hw)
+        empty = mt.sum(dim=-1) == 0
+        assert torch.equal(p[empty], torch.zeros_like(p[empty]))
+        de = masked_softmax_backward(p, gt)
+        de2 = masked_softmax_backward(p, gt)
+        want = masked_softmax_backward_plain(pr, gt)
+        torch.cuda.synchronize()
+        assert torch.equal(de, de2)
+        scale = want.abs().max().item()
+        assert (de - want).abs().max().item() <= 1e-5 * scale, (b, n, hw)
+    # a NaN in an otherwise zero row of g reaches de as the plain formula
+    # carries it
+    e, mask = _inputs(2, 4, 1024, seed=9)
+    cot = _cotangent(mask, "main", seed=9, k=1)
+    row = int(np.flatnonzero(np.abs(cot[0]).sum(axis=-1) == 0)[0])
+    cot[0, row, 17] = np.nan
+    p = masked_softmax(torch.from_numpy(e).to(dev),
+                       torch.from_numpy(mask).to(dev))
+    gt = torch.from_numpy(cot).to(dev)
+    de = masked_softmax_backward(p, gt)
+    want = masked_softmax_backward_plain(p, gt)
+    assert torch.equal(torch.isnan(de), torch.isnan(want))
+    assert torch.isnan(de[0]).any() and not torch.isnan(de[1]).any()
+    ok = ~torch.isnan(want)
+    assert (de[ok] - want[ok]).abs().max().item() <= 1e-5 * want[ok].abs().max()

@@ -3,6 +3,9 @@ monolithic ``Predictor`` on ``tests/test_staged_extraction.py``'s small
 configuration (64x64, n_filters=8, max_n_objects=8; the 192 window scales
 to 48 with stride 16, so the windowed decode runs), float32 on the CPU.
 
+Both predictors are compared at their defaults (the semantic probabilities
+returned) and with ``with_probs=False``, dtypes included.
+
 Weights: the JAX init's shapes, every leaf drawn from a seeded numpy
 stream at the init's scales (BN statistics not the trivial 0/1).  Both
 sides get the same tree.  Id maps must agree on >= 99.9% of pixels (the
@@ -70,12 +73,15 @@ def setup():
     return variables, imgs
 
 
-def _compare(variables, imgs, jax_model_kw, stop_params):
+def _compare(variables, imgs, jax_model_kw, stop_params, kw):
+    """Both predictors called with ``kw`` (``{}``: their defaults, which
+    return the semantic probabilities; or ``with_probs=False``): the same
+    tuple layout and dtypes, probabilities within 1e-5, fg and counts
+    equal, id maps on >= 99.9% of pixels.  Returns the port's predictor,
+    id map and counts."""
     jcfg = _small(jax_cvppp_config(), **jax_model_kw)
     jp = JaxPredictor(jcfg, build_model(jcfg), variables, batch_size=4,
                       staged=False, stop_params=stop_params)
-    _, fg0, id0, n0 = jp.predict_batch_arrays(imgs, with_probs=False)
-    fg0, id0, n0 = map(np.asarray, (fg0, id0, n0))
 
     tcfg = _small(cvppp_config(), **jax_model_kw)
     tree = variables
@@ -86,33 +92,63 @@ def _compare(variables, imgs, jax_model_kw, stop_params):
     tp = Predictor(tcfg, load_flax(ReSeg(tcfg), tree), batch_size=4,
                    device="cpu", stop_params=stop_params)
     assert tp.dtype == torch.float32
-    _, fg1, id1, n1 = tp.predict_batch_arrays(imgs)
-    np.testing.assert_array_equal(fg1.numpy(), fg0)
-    np.testing.assert_array_equal(n1.numpy(), n0)
-    assert (id1.numpy() == id0).mean() >= 0.999
+    want = jp.predict_batch_arrays(imgs, **kw)
+    got = tp.predict_batch_arrays(imgs, **kw)
+    assert len(got) == len(want) == 4
+    assert (got[0] is None) == (want[0] is None) == ("with_probs" in kw)
+    for g, w in zip(got, want):
+        if w is not None:
+            w = np.asarray(w)
+            assert g.numpy().dtype == w.dtype, (g.dtype, w.dtype)
+            assert tuple(g.shape) == w.shape, (g.shape, w.shape)
+    probs1, fg1, id1, n1 = got
+    probs0, fg0, id0, n0 = want
+    if probs0 is not None:
+        np.testing.assert_allclose(probs1.numpy(), np.asarray(probs0),
+                                   rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(fg1.numpy(), np.asarray(fg0))
+    np.testing.assert_array_equal(n1.numpy(), np.asarray(n0))
+    assert (id1.numpy() == np.asarray(id0)).mean() >= 0.999
     return tp, id1, n1
 
 
-def test_predictor_matches_jax(setup):
+def _check_plain(setup, kw):
     variables, imgs = setup
-    tp, _, n1 = _compare(variables, imgs, {}, None)
+    tp, _, n1 = _compare(variables, imgs, {}, None, kw)
     assert tp.rounds_run >= 1 and int(n1.sum()) > 0
+
+
+def _check_stop_params_no_heads(setup, kw):
+    variables, imgs = setup
+    sp = load_stop_params()
+    tp, id1, n1 = _compare(
+        variables, imgs, dict(use_count_head=False, use_density_head=False),
+        sp, kw,
+    )
+    assert tp.rounds_run == 2  # ceil(8 / 4), nobody done after round 1
+    # running every round without the per-round sync changes nothing
+    tp.sync_rounds = False
+    _, _, id2, n2 = tp.predict_batch_arrays(imgs, **kw)
+    assert torch.equal(id1, id2) and torch.equal(n1, n2)
+
+
+def test_predictor_matches_jax(setup):
+    """Both predictors at their defaults: probabilities, int32 id map."""
+    _check_plain(setup, {})
+
+
+def test_predictor_matches_jax_without_probs(setup):
+    _check_plain(setup, {"with_probs": False})
 
 
 def test_predictor_matches_jax_with_stop_params_no_heads(setup):
     """Calibrated stopping rule (size-aware suppression) and the static
     budget: more rounds, every sample's extraction through the window."""
-    variables, imgs = setup
-    sp = load_stop_params()
-    tp, id1, n1 = _compare(
-        variables, imgs, dict(use_count_head=False, use_density_head=False),
-        sp,
-    )
-    assert tp.rounds_run == 2  # ceil(8 / 4), nobody done after round 1
-    # running every round without the per-round sync changes nothing
-    tp.sync_rounds = False
-    _, _, id2, n2 = tp.predict_batch_arrays(imgs)
-    assert torch.equal(id1, id2) and torch.equal(n1, n2)
+    _check_stop_params_no_heads(setup, {})
+
+
+def test_predictor_matches_jax_with_stop_params_no_heads_without_probs(setup):
+    _check_stop_params_no_heads(setup, {"with_probs": False})
 
 
 def test_pack_unpack_roundtrip():

@@ -462,6 +462,77 @@ def test_input_checks_raise(bad):
                             "mask_pad")], 3, 1, False, True)
 
 
+@pytest.mark.parametrize("bad", ["misaligned-k4-u", "float64-u",
+                                 "strided-x"])
+def test_checked_caches_and_still_raises(bad):
+    """The wrappers run ``_check`` once per input signature: a second call
+    of the same signature comes from the cache, and an input that
+    ``_check`` refuses still raises after a good call of the same shapes
+    (``u``'s alignment is checked on every call)."""
+    from tpuseg_torch.kernels import sru_scan as mod
+
+    names = ("u", "x", "weight_c", "bias", "c0", "mask_c", "mask_pad")
+    a = _torch(_inputs(4, 2, 3, 4, 1, seed=63, mask_pad=True))
+    args = [a[n] for n in names]
+    mod._CHECKED.clear()
+    want = mod._check(*args, 3, 1, False, True)
+    for _ in range(2):
+        assert mod._checked(*args, 3, 1, False, True) == want
+        assert len(mod._CHECKED) == 1
+    if bad == "misaligned-k4-u":
+        a["u"] = _misaligned(a["u"])
+    elif bad == "float64-u":
+        a["u"] = a["u"].double()
+    else:
+        a["x"] = a["x"].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="sru_scan"):
+        mod._checked(*[a[n] for n in names], 3, 1, False, True)
+
+
+@pytest.mark.cuda
+def test_folded_batch_sum_and_prefetch_on_card():
+    """The backward's batch sum folded into the scan: one launch per call,
+    weight gradients bit-equal over two runs and within tolerance of the
+    plain backward, over several column slices and lengths that are and
+    are not multiples of the prefetch depth (L = 1 included), uni k=3 and
+    bi k=4, with ragged ``mask_pad``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    for length in (1, 3, 4, 7, 9):
+        for bidir, k, pad in ((1, 3, True), (2, 4, True), (1, 4, False)):
+            d = 70  # W = 70 or 140: two or three slices of the grid
+            a = _inputs(length, 33, d, k, bidir, seed=length * 10 + k,
+                        mask_c=True, mask_pad=pad and length > 1)
+            kw = _kw(d, 1, bidir, True)
+            spec = tuple(kw[n] for n in ("d", "activation", "bidirectional",
+                                         "has_skip_term", "scale_x"))
+            t = {n: None if v is None else v.to(dev)
+                 for n, v in _torch(a).items()}
+            args = [t[n] for n in ("u", "x", "weight_c", "bias", "c0",
+                                   "mask_c", "mask_pad")]
+            h, cf, c_all = sru_scan_forward(*args, *spec)
+            hp, cfp, c_allp = sru_states(*args[:5], mask_pad=t["mask_pad"],
+                                         mask_c=t["mask_c"], **kw)
+            for got, want in ((h, hp), (cf, cfp), (c_all, c_allp)):
+                torch.testing.assert_close(got, want, **FWD_TOL)
+            gh = torch.randn(h.shape, device=dev)
+            gcf = torch.randn(cf.shape, device=dev)
+            before = sru_scan.backward_launches
+            got = sru_scan_backward(*args, c_all, gh, gcf, *spec)
+            again = sru_scan_backward(*args, c_all, gh, gcf, *spec)
+            torch.cuda.synchronize()
+            assert sru_scan.backward_launches - before == 2 * BACKWARD_LAUNCHES
+            assert BACKWARD_LAUNCHES == 1
+            assert torch.equal(got[2], again[2]) and torch.equal(got[3],
+                                                                 again[3])
+            want = sru_scan_backward_plain(*args, c_all, gh, gcf, *spec)
+            for g, w in zip(got, want):
+                assert (g is None) == (w is None)
+                if g is not None:
+                    torch.testing.assert_close(g, w, **BWD_TOL)
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     """Forward (h, c_final, c_all) within 2e-5 of the plain loop; backward

@@ -90,6 +90,20 @@ def compile_all(jobs: Dict[str, Tuple[Path, Path]]) -> None:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
 
 
+def stream_handle(device) -> int:
+    """The handle of the current CUDA stream on ``device``, for a launch:
+    ``torch._C._cuda_getCurrentRawStream`` returns it without building a
+    ``torch.cuda.Stream`` object (0.18 against 8.6 us a call on the H100
+    machine's host)."""
+    import torch
+
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    index = device.index
+    return raw(torch.cuda.current_device() if index is None else index)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The kernel's library, built on first use."""
     lib = _loaded.get(name)

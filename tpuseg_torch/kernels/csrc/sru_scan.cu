@@ -10,10 +10,10 @@
 //   weight_c, bias (2, ndir, d): the f half, then the r half;
 //   c0, mask_c (B, ndir, d);  mask_pad (L, B), 1 = padded step;
 //   h, c_all (L, B, ndir, d);  c_final (B, ndir, d).
-// A column is one (batch, direction, hidden) index, col = (b*ndir + dir)*d
-// + j; at step t its element sits at t*N + col (N = B*ndir*d) in every
-// (L, B, ...) tensor, and at (t*N + col)*k in u.  Direction 1 scans time
-// reversed.
+// A column is one (batch, direction, hidden) index, col = b*W + o with
+// W = ndir*d and o = dir*d + j; at step t its element sits at t*N + col
+// (N = B*W) in every (L, B, ...) tensor, and at (t*N + col)*k in u.
+// Direction 1 scans time reversed.
 //
 //   f_t = sigmoid(u1 + fb + c_{t-1} * fw)
 //   r_t = sigmoid(u2 + rb + c_{t-1} * rw)
@@ -34,19 +34,35 @@
 // packs columns direction-major into 128-lane rows, three extra passes over u
 // that this card has no reason for).  Neighbouring threads hold neighbouring
 // columns, so every step's loads and stores are coalesced; k = 4 rows move as
-// one 16-byte vector.  The forward writes every c_t, so the backward reads
-// c_{t-1} back instead of recomputing it, and recomputes the gates from it.
-// The backward walks time the other way, carrying dc and four per-column
-// partial sums (d weight_c, d bias); a second launch sums them over the batch
-// in a fixed order: no atomics, so the weight gradients are bit-equal from
-// run to run.  Later work: prefetch several steps of u into registers, so
-// that enough bytes are in flight with ~7 warps per SM at B*d = 29120.
+// one 16-byte vector.  The dependent chain through c leaves the loads idle,
+// and with B*W = 29120 columns an SM holds only ~7 warps, so each thread
+// loads kPrefetch steps ahead into a ring of registers: the step's inputs
+// arrive while earlier steps compute.  The grid is (W / kThreads, B): small
+// blocks spread the columns over all 132 SMs.  The forward writes every c_t,
+// so the backward reads c_{t-1} back instead of recomputing it, and
+// recomputes the gates from it.  The backward walks time the other way,
+// carrying dc and four per-column partial sums (d weight_c, d bias); the
+// last block of each column slice to finish (an arrival counter per slice)
+// sums the partials of its slice over the batch, b = 0..B-1 in order, and
+// resets the counter: one launch, no atomics on the values, so the weight
+// gradients are bit-equal from run to run.
 
 #include <cuda_runtime.h>
 
+// threads per block (32 and 128 measured the same at the LM width) and
+// steps loaded ahead (2 slower; 8 spills nothing but needs 140-150
+// registers in the backward, which costs the bidirectional case a wave)
+#ifndef SRU_THREADS
+#define SRU_THREADS 64
+#endif
+#ifndef SRU_PREFETCH
+#define SRU_PREFETCH 4
+#endif
+
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = SRU_THREADS;
+constexpr int kPrefetch = SRU_PREFETCH;  // steps loaded ahead
 
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
@@ -76,25 +92,47 @@ __device__ __forceinline__ float4 load_u(const float* __restrict__ u,
 }
 
 struct Column {
-  int col, b, dir, j;
+  int o, b, dir;
+  size_t col;
+  bool live;
   float fw, rw, fb, rb, mc;
 };
 
-__device__ __forceinline__ bool column(Column& c, const float* weight_c,
-                                       const float* bias, const float* mask_c,
-                                       int n_cols, int d, int ndir) {
-  c.col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c.col >= n_cols) return false;
-  c.j = c.col % d;
-  c.dir = (c.col / d) % ndir;
-  c.b = c.col / (ndir * d);
-  const int f = c.dir * d + c.j, r = (ndir + c.dir) * d + c.j;
-  c.fw = weight_c[f];
-  c.rw = weight_c[r];
-  c.fb = bias[f];
-  c.rb = bias[r];
+// grid (slices of W, B): this thread's column, `live` false past W
+__device__ __forceinline__ Column column(const float* weight_c,
+                                         const float* bias,
+                                         const float* mask_c, int width,
+                                         int d) {
+  Column c;
+  c.o = blockIdx.x * kThreads + threadIdx.x;
+  c.b = blockIdx.y;
+  c.live = c.o < width;
+  const int o = c.live ? c.o : 0;
+  c.dir = o / d;
+  c.col = static_cast<size_t>(c.b) * width + o;
+  c.fw = weight_c[o];
+  c.rw = weight_c[width + o];
+  c.fb = bias[o];
+  c.rb = bias[width + o];
   c.mc = mask_c ? mask_c[c.col] : 1.f;
-  return true;
+  return c;
+}
+
+// One step's inputs.
+struct Step {
+  float4 u;
+  float x, pad, gh, cp;
+};
+
+template <int K>
+__device__ __forceinline__ void load_fwd(Step& in, const float* u,
+                                         const float* x, const float* pad,
+                                         int t, size_t n_cols, size_t col,
+                                         int batch, int b) {
+  const size_t i = static_cast<size_t>(t) * n_cols + col;
+  in.u = load_u<K>(u, i);
+  in.x = x ? __ldg(x + i) : 0.f;
+  in.pad = pad ? __ldg(pad + static_cast<size_t>(t) * batch + b) : 0.f;
 }
 
 template <int K, int ACT>
@@ -107,41 +145,77 @@ sru_fwd_kernel(const float* __restrict__ u, const float* __restrict__ x,
                float* __restrict__ c_all, float* __restrict__ c_final,
                int length, int batch, int d, int ndir, int has_skip,
                float scale_x) {
-  const int n_cols = batch * ndir * d;
-  Column cl;
-  if (!column(cl, weight_c, bias, mask_c, n_cols, d, ndir)) return;
+  const int width = ndir * d;
+  const size_t n_cols = static_cast<size_t>(batch) * width;
+  const Column cl = column(weight_c, bias, mask_c, width, d);
+  if (!cl.live) return;
   const bool rev = cl.dir == 1;
+  const float* xs = has_skip && K == 3 ? x : nullptr;
+  Step ring[kPrefetch];
+#pragma unroll
+  for (int q = 0; q < kPrefetch; ++q)
+    if (q < length)
+      load_fwd<K>(ring[q], u, xs, mask_pad, rev ? length - 1 - q : q, n_cols,
+                  cl.col, batch, cl.b);
   float c = c0 ? c0[cl.col] : 0.f;
-  for (int s = 0; s < length; ++s) {
-    const int t = rev ? length - 1 - s : s;
-    const size_t i = static_cast<size_t>(t) * n_cols + cl.col;
-    const float4 ut = load_u<K>(u, i);
-    const float f = sigmoid(ut.y + cl.fb + c * cl.fw);
-    const float r = sigmoid(ut.z + cl.rb + c * cl.rw);
-    float ct = ut.x + (c - ut.x) * f;
-    float keep = 1.f;
-    if (mask_pad) {
-      const float p = mask_pad[static_cast<size_t>(t) * batch + cl.b];
-      keep = 1.f - p;
-      ct = ct * keep + c * p;
+  for (int s0 = 0; s0 < length; s0 += kPrefetch) {
+#pragma unroll
+    for (int q = 0; q < kPrefetch; ++q) {
+      const int s = s0 + q;
+      if (s >= length) break;
+      const Step in = ring[q];
+      const int nx = s + kPrefetch;
+      if (nx < length)
+        load_fwd<K>(ring[q], u, xs, mask_pad, rev ? length - 1 - nx : nx,
+                    n_cols, cl.col, batch, cl.b);
+      const int t = rev ? length - 1 - s : s;
+      const size_t i = static_cast<size_t>(t) * n_cols + cl.col;
+      const float4 ut = in.u;
+      const float f = sigmoid(ut.y + cl.fb + c * cl.fw);
+      const float r = sigmoid(ut.z + cl.rb + c * cl.rw);
+      float ct = ut.x + (c - ut.x) * f;
+      float keep = 1.f;
+      if (mask_pad) {
+        const float p = in.pad;
+        keep = 1.f - p;
+        ct = ct * keep + c * p;
+      }
+      const float g = act<ACT>(ct) * cl.mc;
+      float ht;
+      if (has_skip) {
+        const float xp = K == 4 ? ut.w : in.x * scale_x;
+        ht = xp + (g - xp) * r;
+      } else {
+        ht = g * r;
+      }
+      if (mask_pad) ht *= keep;
+      h[i] = ht;
+      c_all[i] = ct;
+      c = ct;
     }
-    const float g = act<ACT>(ct) * cl.mc;
-    float ht;
-    if (has_skip) {
-      const float xp = K == 4 ? ut.w : __ldg(x + i) * scale_x;
-      ht = xp + (g - xp) * r;
-    } else {
-      ht = g * r;
-    }
-    if (mask_pad) ht *= keep;
-    h[i] = ht;
-    c_all[i] = ct;
-    c = ct;
   }
   c_final[cl.col] = c;
 }
 
-// part: (4, N) per-column partials of d fw, d rw, d fb, d rb.
+template <int K>
+__device__ __forceinline__ void load_bwd(Step& in, const float* u,
+                                         const float* x, const float* pad,
+                                         const float* c_all, const float* gh,
+                                         float c0v, int t, bool rev,
+                                         int length, size_t n_cols,
+                                         size_t col, int batch, int b) {
+  load_fwd<K>(in, u, x, pad, t, n_cols, col, batch, b);
+  in.gh = __ldg(gh + static_cast<size_t>(t) * n_cols + col);
+  // c_{t-1}: the state the forward held before step t (c0 before its first)
+  const bool first = rev ? t == length - 1 : t == 0;
+  in.cp = first ? c0v
+                : __ldg(c_all + static_cast<size_t>(rev ? t + 1 : t - 1) *
+                                    n_cols + col);
+}
+
+// part: (4, N) per-column partials of d fw, d rw, d fb, d rb; dwb (4, W)
+// their batch sums; counters: one per column slice, zero on entry and on
+// exit.
 template <int K, int ACT>
 __global__ void __launch_bounds__(kThreads)
 sru_bwd_kernel(const float* __restrict__ u, const float* __restrict__ x,
@@ -152,112 +226,134 @@ sru_bwd_kernel(const float* __restrict__ u, const float* __restrict__ x,
                const float* __restrict__ c_all, const float* __restrict__ gh,
                const float* __restrict__ gc_final, float* __restrict__ gu,
                float* __restrict__ gx, float* __restrict__ part,
-               float* __restrict__ gc0, int length, int batch, int d,
+               float* __restrict__ gc0, float* __restrict__ dwb,
+               unsigned* __restrict__ counters, int length, int batch, int d,
                int ndir, int has_skip, float scale_x) {
-  const int n_cols = batch * ndir * d;
-  Column cl;
-  if (!column(cl, weight_c, bias, mask_c, n_cols, d, ndir)) return;
-  const bool rev = cl.dir == 1;
-  const float c0v = c0 ? c0[cl.col] : 0.f;
-  float gc = gc_final[cl.col];
-  float afw = 0.f, arw = 0.f, afb = 0.f, arb = 0.f;
-  // the forward's steps in reverse: direction 0 from t = L-1 down to 0,
-  // direction 1 from t = 0 up; c_{t-1} is the state the forward held
-  // before step t (c0 before its first step)
-  float c = c_all[static_cast<size_t>(rev ? 0 : length - 1) * n_cols +
-                  cl.col];
-  for (int s = 0; s < length; ++s) {
-    const int t = rev ? s : length - 1 - s;
-    const size_t i = static_cast<size_t>(t) * n_cols + cl.col;
-    const bool first = rev ? t == length - 1 : t == 0;
-    const float cp =
-        first ? c0v
-              : c_all[static_cast<size_t>(rev ? t + 1 : t - 1) * n_cols +
-                      cl.col];
-    const float4 ut = load_u<K>(u, i);
-    const float f = sigmoid(ut.y + cl.fb + cp * cl.fw);
-    const float r = sigmoid(ut.z + cl.rb + cp * cl.rw);
-    float p = 0.f, ght = gh[i];
-    if (mask_pad) {
-      p = mask_pad[static_cast<size_t>(t) * batch + cl.b];
-      ght *= 1.f - p;
+  const int width = ndir * d;
+  const size_t n_cols = static_cast<size_t>(batch) * width;
+  const Column cl = column(weight_c, bias, mask_c, width, d);
+  if (cl.live) {
+    const bool rev = cl.dir == 1;
+    const float* xs = has_skip && K == 3 ? x : nullptr;
+    const float c0v = c0 ? c0[cl.col] : 0.f;
+    float gc = gc_final[cl.col];
+    float afw = 0.f, arw = 0.f, afb = 0.f, arb = 0.f;
+    // the forward's steps in reverse: direction 0 from t = L-1 down to 0,
+    // direction 1 from t = 0 up
+    Step ring[kPrefetch];
+#pragma unroll
+    for (int q = 0; q < kPrefetch; ++q)
+      if (q < length)
+        load_bwd<K>(ring[q], u, xs, mask_pad, c_all, gh, c0v,
+                    rev ? q : length - 1 - q, rev, length, n_cols, cl.col,
+                    batch, cl.b);
+    float c = c_all[static_cast<size_t>(rev ? 0 : length - 1) * n_cols +
+                    cl.col];
+    for (int s0 = 0; s0 < length; s0 += kPrefetch) {
+#pragma unroll
+      for (int q = 0; q < kPrefetch; ++q) {
+        const int s = s0 + q;
+        if (s >= length) break;
+        const Step in = ring[q];
+        const int nx = s + kPrefetch;
+        if (nx < length)
+          load_bwd<K>(ring[q], u, xs, mask_pad, c_all, gh, c0v,
+                      rev ? nx : length - 1 - nx, rev, length, n_cols, cl.col,
+                      batch, cl.b);
+        const int t = rev ? s : length - 1 - s;
+        const size_t i = static_cast<size_t>(t) * n_cols + cl.col;
+        const float cp = in.cp;
+        const float4 ut = in.u;
+        const float f = sigmoid(ut.y + cl.fb + cp * cl.fw);
+        const float r = sigmoid(ut.z + cl.rb + cp * cl.rw);
+        float p = 0.f, ght = in.gh;
+        if (mask_pad) {
+          p = in.pad;
+          ght *= 1.f - p;
+        }
+        const float gv = act<ACT>(c);
+        const float g = gv * cl.mc;
+        float dr, gxp = 0.f;
+        if (has_skip) {
+          const float xp = K == 4 ? ut.w : in.x * scale_x;
+          dr = ght * (g - xp);
+          gxp = ght * (1.f - r);
+        } else {
+          dr = ght * g;
+        }
+        const float gct = ght * r * cl.mc * act_grad<ACT>(c, gv) + gc;
+        const float gcc = gct * (1.f - p);  // through c~
+        const float du0 = gcc * (1.f - f);
+        const float du1 = gcc * (cp - ut.x) * f * (1.f - f);
+        const float du2 = dr * r * (1.f - r);
+        gc = gcc * f + du1 * cl.fw + du2 * cl.rw + gct * p;
+        afw += du1 * cp;
+        arw += du2 * cp;
+        afb += du1;
+        arb += du2;
+        if (K == 4) {
+          reinterpret_cast<float4*>(gu)[i] = make_float4(du0, du1, du2, gxp);
+        } else {
+          float* q3 = gu + i * 3;
+          q3[0] = du0;
+          q3[1] = du1;
+          q3[2] = du2;
+          if (gx) gx[i] = gxp * scale_x;
+        }
+        c = cp;
+      }
     }
-    const float gv = act<ACT>(c);
-    const float g = gv * cl.mc;
-    float dr, gxp = 0.f;
-    if (has_skip) {
-      const float xp = K == 4 ? ut.w : __ldg(x + i) * scale_x;
-      dr = ght * (g - xp);
-      gxp = ght * (1.f - r);
-    } else {
-      dr = ght * g;
-    }
-    const float gct = ght * r * cl.mc * act_grad<ACT>(c, gv) + gc;
-    const float gcc = gct * (1.f - p);  // through c~
-    const float du0 = gcc * (1.f - f);
-    const float du1 = gcc * (cp - ut.x) * f * (1.f - f);
-    const float du2 = dr * r * (1.f - r);
-    gc = gcc * f + du1 * cl.fw + du2 * cl.rw + gct * p;
-    afw += du1 * cp;
-    arw += du2 * cp;
-    afb += du1;
-    arb += du2;
-    if (K == 4) {
-      reinterpret_cast<float4*>(gu)[i] = make_float4(du0, du1, du2, gxp);
-    } else {
-      float* q = gu + i * 3;
-      q[0] = du0;
-      q[1] = du1;
-      q[2] = du2;
-      if (gx) gx[i] = gxp * scale_x;
-    }
-    c = cp;
+    gc0[cl.col] = gc;
+    part[cl.col] = afw;
+    part[n_cols + cl.col] = arw;
+    part[2 * n_cols + cl.col] = afb;
+    part[3 * n_cols + cl.col] = arb;
   }
-  gc0[cl.col] = gc;
-  part[cl.col] = afw;
-  part[n_cols + cl.col] = arw;
-  part[2 * n_cols + cl.col] = afb;
-  part[3 * n_cols + cl.col] = arb;
+  // the batch sum of this slice's partials, by the slice's last block
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(counters + blockIdx.x, 1u) == gridDim.y - 1;
+  __syncthreads();
+  if (!last) return;
+  if (cl.live) {
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+    const float* q = part + cl.o;
+    for (int b = 0; b < batch; ++b) {
+      const size_t at = static_cast<size_t>(b) * width;
+      s0 += __ldcg(q + at);
+      s1 += __ldcg(q + n_cols + at);
+      s2 += __ldcg(q + 2 * n_cols + at);
+      s3 += __ldcg(q + 3 * n_cols + at);
+    }
+    dwb[cl.o] = s0;
+    dwb[width + cl.o] = s1;
+    dwb[2 * width + cl.o] = s2;
+    dwb[3 * width + cl.o] = s3;
+  }
+  if (threadIdx.x == 0) counters[blockIdx.x] = 0u;
 }
 
-// out (4, ndir, d) = part (4, B, ndir, d) summed over the batch, b = 0..B-1
-// in order: out[0:2] is d weight_c, out[2:4] d bias.
-__global__ void __launch_bounds__(kThreads)
-sru_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
-                  int batch, int width) {
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= 4 * width) return;
-  const int which = o / width, rem = o % width;
-  const float* p = part + static_cast<size_t>(which) * batch * width + rem;
-  float acc = 0.f;
-  for (int b = 0; b < batch; ++b) acc += p[static_cast<size_t>(b) * width];
-  out[o] = acc;
-}
-
-inline int blocks(int n) { return (n + kThreads - 1) / kThreads; }
-
-template <int K, int ACT>
-void launch_fwd(const float* u, const float* x, const float* wc,
-                const float* bias, const float* c0, const float* mc,
-                const float* mp, float* h, float* c_all, float* cf, int length,
-                int batch, int d, int ndir, int has_skip, float scale_x,
-                cudaStream_t s) {
-  sru_fwd_kernel<K, ACT><<<blocks(batch * ndir * d), kThreads, 0, s>>>(
-      u, x, wc, bias, c0, mc, mp, h, c_all, cf, length, batch, d, ndir,
-      has_skip, scale_x);
+inline dim3 grid(int batch, int width) {
+  return dim3((width + kThreads - 1) / kThreads, batch);
 }
 
 template <int K, int ACT>
-void launch_bwd(const float* u, const float* x, const float* wc,
-                const float* bias, const float* c0, const float* mc,
-                const float* mp, const float* c_all, const float* gh,
-                const float* gcf, float* gu, float* gx, float* part,
-                float* gc0, int length, int batch, int d, int ndir,
-                int has_skip, float scale_x, cudaStream_t s) {
-  sru_bwd_kernel<K, ACT><<<blocks(batch * ndir * d), kThreads, 0, s>>>(
-      u, x, wc, bias, c0, mc, mp, c_all, gh, gcf, gu, gx, part, gc0, length,
-      batch, d, ndir, has_skip, scale_x);
-}
+struct Fwd {
+  template <typename... A>
+  static void run(int batch, int width, cudaStream_t s, A... a) {
+    sru_fwd_kernel<K, ACT><<<grid(batch, width), kThreads, 0, s>>>(a...);
+  }
+};
+
+template <int K, int ACT>
+struct Bwd {
+  template <typename... A>
+  static void run(int batch, int width, cudaStream_t s, A... a) {
+    sru_bwd_kernel<K, ACT><<<grid(batch, width), kThreads, 0, s>>>(a...);
+  }
+};
 
 // the (k, activation) instance; false for a pair the kernels do not take
 template <template <int, int> class F, typename... A>
@@ -273,23 +369,12 @@ bool dispatch(int k, int activation, A... args) {
   }
 }
 
-template <int K, int ACT>
-struct Fwd {
-  template <typename... A>
-  static void run(A... a) { launch_fwd<K, ACT>(a...); }
-};
-
-template <int K, int ACT>
-struct Bwd {
-  template <typename... A>
-  static void run(A... a) { launch_bwd<K, ACT>(a...); }
-};
-
 }  // namespace
 
 // Pointers may be null for c0 (zeros), mask_c (ones) and mask_pad (no
 // padding); x may be null unless k = 3 with the skip term.  Returns a
-// cudaError_t (cudaErrorInvalidValue for k or activation out of range).
+// cudaError_t (cudaErrorInvalidValue for k or activation out of range, or a
+// batch beyond the grid's 65535 rows).
 extern "C" int tpuseg_sru_fwd(const void* u, const void* x,
                               const void* weight_c, const void* bias,
                               const void* c0, const void* mask_c,
@@ -297,46 +382,45 @@ extern "C" int tpuseg_sru_fwd(const void* u, const void* x,
                               void* c_final, int length, int batch, int d,
                               int k, int ndir, int activation, int has_skip,
                               float scale_x, void* stream) {
+  if (batch > 65535) return cudaErrorInvalidValue;
   const bool ok = dispatch<Fwd>(
-      k, activation, static_cast<const float*>(u),
-      static_cast<const float*>(x), static_cast<const float*>(weight_c),
-      static_cast<const float*>(bias), static_cast<const float*>(c0),
-      static_cast<const float*>(mask_c), static_cast<const float*>(mask_pad),
-      static_cast<float*>(h), static_cast<float*>(c_all),
-      static_cast<float*>(c_final), length, batch, d, ndir, has_skip, scale_x,
-      static_cast<cudaStream_t>(stream));
+      k, activation, batch, ndir * d, static_cast<cudaStream_t>(stream),
+      static_cast<const float*>(u), static_cast<const float*>(x),
+      static_cast<const float*>(weight_c), static_cast<const float*>(bias),
+      static_cast<const float*>(c0), static_cast<const float*>(mask_c),
+      static_cast<const float*>(mask_pad), static_cast<float*>(h),
+      static_cast<float*>(c_all), static_cast<float*>(c_final), length,
+      batch, d, ndir, has_skip, scale_x);
   if (!ok) return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 
-// Two launches: the reverse-time scan, writing du (L, B, ndir, d, k), dx
-// (L, B, ndir*d; k = 3 with the skip term, else pass null), dc0 (B, ndir*d)
-// and the partials (4 * B*ndir*d floats of scratch); then the batch sum
-// into dwb (4 * ndir*d): d weight_c, then d bias.
+// One launch: the reverse-time scan, writing du (L, B, ndir, d, k), dx
+// (L, B, ndir*d; k = 3 with the skip term, else pass null), dc0 (B, ndir*d),
+// the partials (4 * B*ndir*d floats of scratch) and their batch sum dwb
+// (4 * ndir*d): d weight_c, then d bias.  `counters`: at least ndir*d
+// zeroed uint32, left zeroed; calls that share them must be stream-ordered.
 extern "C" int tpuseg_sru_bwd(const void* u, const void* x,
                               const void* weight_c, const void* bias,
                               const void* c0, const void* mask_c,
                               const void* mask_pad, const void* c_all,
                               const void* gh, const void* gc_final, void* gu,
                               void* gx, void* part, void* gc0, void* dwb,
-                              int length, int batch, int d, int k, int ndir,
-                              int activation, int has_skip, float scale_x,
-                              void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                              void* counters, int length, int batch, int d,
+                              int k, int ndir, int activation, int has_skip,
+                              float scale_x, void* stream) {
+  if (batch > 65535) return cudaErrorInvalidValue;
   const bool ok = dispatch<Bwd>(
-      k, activation, static_cast<const float*>(u),
-      static_cast<const float*>(x), static_cast<const float*>(weight_c),
-      static_cast<const float*>(bias), static_cast<const float*>(c0),
-      static_cast<const float*>(mask_c), static_cast<const float*>(mask_pad),
-      static_cast<const float*>(c_all), static_cast<const float*>(gh),
-      static_cast<const float*>(gc_final), static_cast<float*>(gu),
-      static_cast<float*>(gx), static_cast<float*>(part),
-      static_cast<float*>(gc0), length, batch, d, ndir, has_skip, scale_x, s);
+      k, activation, batch, ndir * d, static_cast<cudaStream_t>(stream),
+      static_cast<const float*>(u), static_cast<const float*>(x),
+      static_cast<const float*>(weight_c), static_cast<const float*>(bias),
+      static_cast<const float*>(c0), static_cast<const float*>(mask_c),
+      static_cast<const float*>(mask_pad), static_cast<const float*>(c_all),
+      static_cast<const float*>(gh), static_cast<const float*>(gc_final),
+      static_cast<float*>(gu), static_cast<float*>(gx),
+      static_cast<float*>(part), static_cast<float*>(gc0),
+      static_cast<float*>(dwb), static_cast<unsigned*>(counters), length,
+      batch, d, ndir, has_skip, scale_x);
   if (!ok) return cudaErrorInvalidValue;
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int width = ndir * d;
-  sru_reduce_kernel<<<blocks(4 * width), kThreads, 0, s>>>(
-      static_cast<const float*>(part), static_cast<float*>(dwb), batch, width);
   return cudaGetLastError();
 }

@@ -15,8 +15,10 @@ path holds the batch's instance masks.
 
 The gradient reaches ``e`` only: ``de[b, hw] = sum_n p * (g - sum_hw p * g)``,
 summed over the instances in a fixed order (no atomics), so it is the same
-from run to run.  ``csrc/masked_softmax.cu`` says what bounds the kernels
-(bytes) and how a 256 KB row is streamed.
+from run to run.  The backward reads ``p`` only where ``g`` is nonzero and
+sums only the instances whose ``g`` row is: training gives a cotangent to
+the few instances its glimpse loop picked.  ``csrc/masked_softmax.cu`` says
+what bounds the kernels (bytes) and how a 256 KB row is streamed.
 
 ``masked_softmax`` takes the plain version only for tensors on the CPU; on
 a CUDA tensor it launches the kernels or raises.  ``masked_softmax.launches``
@@ -34,7 +36,7 @@ from tpuseg_torch.kernels import build
 
 _NEG_INF = -1e30
 FORWARD_LAUNCHES = 1   # kernel launches per forward call
-BACKWARD_LAUNCHES = 2  # per backward call: the row dots, then de
+BACKWARD_LAUNCHES = 2  # per backward call: the row dots and flags, then de
 
 
 def masked_softmax_plain(e: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -98,7 +100,7 @@ class MaskedSoftmax(torch.autograd.Function):
         fwd, _ = _kernel_fns()
         b, n, hw = mask.shape
         p = torch.empty((b, n, hw), dtype=torch.float32, device=e.device)
-        stream = torch.cuda.current_stream(e.device).cuda_stream
+        stream = build.stream_handle(e.device)
         err = fwd(e.data_ptr(), mask.data_ptr(), p.data_ptr(), b, n, hw,
                   stream)
         if err != 0:
@@ -118,7 +120,8 @@ class MaskedSoftmax(torch.autograd.Function):
 
 def masked_softmax_backward(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """``de (B, HW)`` from the forward's output ``p`` and the cotangent ``g``
-    (both ``(B, N, HW)`` on the card): the two backward launches."""
+    (both ``(B, N, HW)`` on the card): the two backward launches.  ``p``
+    must be finite, as the forward makes it: a zero of ``g`` skips it."""
     if p.device.type != "cuda" or p.dtype != torch.float32 or p.dim() != 3:
         raise ValueError("masked_softmax_backward: p must be a float32 "
                          "(B, N, HW) CUDA tensor")
@@ -130,10 +133,11 @@ def masked_softmax_backward(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         g = g.clone()
     _, bwd = _kernel_fns()
     b, n, hw = p.shape
-    dot = torch.empty((b, n), dtype=torch.float32, device=p.device)
+    # scratch: the row dots, then the rows' active flags
+    scratch = torch.empty((2, b, n), dtype=torch.float32, device=p.device)
     de = torch.empty((b, hw), dtype=torch.float32, device=p.device)
-    stream = torch.cuda.current_stream(p.device).cuda_stream
-    err = bwd(p.data_ptr(), g.data_ptr(), dot.data_ptr(), de.data_ptr(),
+    stream = build.stream_handle(p.device)
+    err = bwd(p.data_ptr(), g.data_ptr(), scratch.data_ptr(), de.data_ptr(),
               b, n, hw, stream)
     if err != 0:
         raise RuntimeError(

@@ -15,8 +15,9 @@ thread per (batch, direction, hidden) column; ``csrc/sru_scan.cu`` says
 what bounds them (bytes) and how.  The forward also writes every step's
 cell state ``c_all (L, B, bidir*d)``, from which the backward recomputes
 the gates.  The backward sums its per-column weight_c and bias partials
-over the batch in a fixed order (a second launch, no atomics), so they are
-bit-equal from run to run; ``mask_c`` and ``mask_pad`` get no gradient.
+over the batch in a fixed order (in the same launch, by the last block of
+each column slice; no atomics on the values), so they are bit-equal from
+run to run; ``mask_c`` and ``mask_pad`` get no gradient.
 
 ``sru_scan`` takes the plain version (``tpuseg_torch.nn.sru.
 sru_recurrence``) only for tensors on the CPU; on a CUDA tensor it
@@ -28,14 +29,14 @@ directions (a backward call is ``BACKWARD_LAUNCHES`` launches).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from tpuseg_torch.kernels import build
 
 FORWARD_LAUNCHES = 1   # kernel launches per forward call
-BACKWARD_LAUNCHES = 2  # per backward call: the reverse scan, the batch sum
+BACKWARD_LAUNCHES = 1  # per backward call: the reverse scan and batch sum
 _ACTIVATIONS = (0, 1, 2)  # id, tanh, relu
 
 
@@ -168,15 +169,60 @@ def _check(u, x, weight_c, bias, c0, mask_c, mask_pad, d, activation,
     return length, batch, ndir, k
 
 
+_CHECKED: Dict[tuple, tuple] = {}  # input signature -> _check's result
+_CHECKED_MAX = 256
+
+
+def _checked(u, x, weight_c, bias, c0, mask_c, mask_pad, d, activation,
+             bidirectional, has_skip_term):
+    """``_check``'s result, computed once per input signature: the spec and
+    every tensor's shape, strides (hence contiguity), dtype and device.
+    The 16-byte alignment of ``u``, which changes from call to call, is
+    checked every time."""
+    key = (d, activation, bidirectional, has_skip_term) + tuple(
+        None if t is None else (t.shape, t.stride(), t.dtype, t.device)
+        for t in (u, x, weight_c, bias, c0, mask_c, mask_pad))
+    got = _CHECKED.get(key)
+    if got is None:
+        got = _check(u, x, weight_c, bias, c0, mask_c, mask_pad, d,
+                     activation, bidirectional, has_skip_term)
+        if len(_CHECKED) >= _CHECKED_MAX:
+            _CHECKED.clear()
+        _CHECKED[key] = got
+    elif got[3] == 4 and u.data_ptr() % 16:
+        raise ValueError("sru_scan: u must be 16-byte aligned for k = 4")
+    return got
+
+
+_COUNTERS: Dict[tuple, torch.Tensor] = {}
+
+
+def _counters(device, stream: int, n: int) -> torch.Tensor:
+    """The backward's arrival counters, one per column slice: zeroed once
+    per (device, stream) and left zeroed by every launch, so the calls that
+    share them run in stream order."""
+    buf = _COUNTERS.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[(device, stream)] = buf
+    return buf
+
+
 def _kernel_fns():
     lib = build.load("sru_scan")
     fwd, bwd = lib.tpuseg_sru_fwd, lib.tpuseg_sru_bwd
     if fwd.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fwd.argtypes = [p] * 10 + [i] * 7 + [f, p]
-        bwd.argtypes = [p] * 15 + [i] * 7 + [f, p]
+        bwd.argtypes = [p] * 16 + [i] * 7 + [f, p]
         fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype != torch.float32 or not t.is_contiguous():
+        t = t.to(torch.float32).contiguous()
+    return t
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -195,16 +241,16 @@ def sru_scan_forward(u, x, weight_c, bias, c0, mask_c, mask_pad, d: int,
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The forward launch on CUDA tensors: (h, c_final, c_all)."""
     _on_card(u, "sru_scan_forward")
-    length, batch, ndir, k = _check(u, x, weight_c, bias, c0, mask_c,
-                                    mask_pad, d, activation, bidirectional,
-                                    has_skip_term)
+    length, batch, ndir, k = _checked(u, x, weight_c, bias, c0, mask_c,
+                                      mask_pad, d, activation, bidirectional,
+                                      has_skip_term)
     fwd, _ = _kernel_fns()
     h = torch.empty((length, batch, ndir * d), dtype=torch.float32,
                     device=u.device)
     c_all = torch.empty_like(h)
     c_final = torch.empty((batch, ndir * d), dtype=torch.float32,
                           device=u.device)
-    stream = torch.cuda.current_stream(u.device).cuda_stream
+    stream = build.stream_handle(u.device)
     err = fwd(u.data_ptr(), _ptr(x), weight_c.data_ptr(), bias.data_ptr(),
               _ptr(c0), _ptr(mask_c), _ptr(mask_pad), h.data_ptr(),
               c_all.data_ptr(), c_final.data_ptr(), length, batch, d, k, ndir,
@@ -219,39 +265,42 @@ def sru_scan_forward(u, x, weight_c, bias, c0, mask_c, mask_pad, d: int,
 def sru_scan_backward(u, x, weight_c, bias, c0, mask_c, mask_pad, c_all, gh,
                       gc_final, d: int, activation: int, bidirectional: bool,
                       has_skip_term: bool, scale_x: float):
-    """The backward launches on CUDA tensors: (du, dx or None, d weight_c,
+    """The backward launch on CUDA tensors: (du, dx or None, d weight_c,
     d bias, dc0), as ``sru_scan_backward_plain``."""
     _on_card(u, "sru_scan_backward")
-    length, batch, ndir, k = _check(u, x, weight_c, bias, c0, mask_c,
-                                    mask_pad, d, activation, bidirectional,
-                                    has_skip_term)
-    want = (length, batch, ndir * d)
-    if (tuple(c_all.shape) != want or tuple(gh.shape) != want
-            or tuple(gc_final.shape) != want[1:]):
+    length, batch, ndir, k = _checked(u, x, weight_c, bias, c0, mask_c,
+                                      mask_pad, d, activation, bidirectional,
+                                      has_skip_term)
+    width = ndir * d
+    want = (length, batch, width)
+    if (c_all.shape != want or gh.shape != want
+            or gc_final.shape != want[1:]):
         raise ValueError("sru_scan_backward: c_all / gh / gc_final do not "
                          "match u")
-    c_all = c_all.to(torch.float32).contiguous()
-    gh = gh.to(torch.float32).contiguous()
-    gc_final = gc_final.to(torch.float32).contiguous()
+    c_all, gh, gc_final = _f32(c_all), _f32(gh), _f32(gc_final)
     _, bwd = _kernel_fns()
     dev = u.device
     gu = torch.empty_like(u)
     gx = torch.empty_like(x) if has_skip_term and k == 3 else None
-    part = torch.empty((4, batch, ndir * d), dtype=torch.float32, device=dev)
-    gc0 = torch.empty((batch, ndir * d), dtype=torch.float32, device=dev)
-    dwb = torch.empty((4, ndir * d), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    # one buffer: d weight_c and d bias (4, W), dc0 (B, W), then the
+    # per-column partials (4, B, W) as scratch
+    n_cols = batch * width
+    small = torch.empty(4 * width + 5 * n_cols, dtype=torch.float32,
+                        device=dev)
+    base = small.data_ptr()  # bytes
+    stream = build.stream_handle(dev)
     err = bwd(u.data_ptr(), _ptr(x), weight_c.data_ptr(), bias.data_ptr(),
               _ptr(c0), _ptr(mask_c), _ptr(mask_pad), c_all.data_ptr(),
               gh.data_ptr(), gc_final.data_ptr(), gu.data_ptr(), _ptr(gx),
-              part.data_ptr(), gc0.data_ptr(), dwb.data_ptr(), length, batch,
-              d, k, ndir, activation, int(has_skip_term), float(scale_x),
-              stream)
+              base + 4 * (4 * width + n_cols), base + 16 * width, base,
+              _counters(dev, stream, width).data_ptr(), length, batch, d, k,
+              ndir, activation, int(has_skip_term), float(scale_x), stream)
     if err != 0:
         raise RuntimeError(f"sru_scan backward launch failed: cudaError {err}")
     sru_scan.launches += BACKWARD_LAUNCHES
     sru_scan.backward_launches += BACKWARD_LAUNCHES
-    return gu, gx, dwb[:2].reshape(-1), dwb[2:].reshape(-1), gc0
+    return (gu, gx, small[:2 * width], small[2 * width:4 * width],
+            small[4 * width:4 * width + n_cols].view(batch, width))
 
 
 class SRUScan(torch.autograd.Function):

@@ -92,14 +92,19 @@ class Predictor:
             raise ValueError("images must be (B, H, W, 3) uint8")
         return x.to(self.device, non_blocking=True)
 
-    def predict_batch_arrays(self, images_u8, with_probs: bool = False):
-        """images_u8 (B, H, W, 3) uint8 -> (sem_probs or None, fg (B, H, W)
-        uint8, idmap (B, H, W) uint8, counts (B,) int32) on the device;
-        sem_probs is (B, H, W, 2) float when asked for."""
+    def predict_batch_arrays(self, images_u8, with_probs: bool = True):
+        """images_u8 (B, H, W, 3) uint8 -> (sem_probs, fg, idmap, counts) on
+        the device, as the JAX package's predictor returns them: with
+        ``with_probs`` sem_probs (B, H, W, 2) float32, fg (B, H, W) uint8,
+        idmap (B, H, W) int32 and counts (B,) int32; without, (None, fg
+        uint8, idmap uint8, counts int32)."""
         sem_probs, idmap, counts = self._infer_full(self._to_device(images_u8))
         fg = sem_probs.argmax(dim=1).to(torch.uint8)
-        probs = sem_probs.permute(0, 2, 3, 1) if with_probs else None
-        return probs, fg, idmap.to(torch.uint8), counts.to(torch.int32)
+        counts = counts.to(torch.int32)
+        if with_probs:
+            probs = sem_probs.permute(0, 2, 3, 1).to(torch.float32)
+            return probs, fg, idmap.to(torch.int32), counts
+        return None, fg, idmap.to(torch.uint8), counts
 
     def predict_batch_packed(self, images_u8):
         """(packed (B, H, W) uint8, counts (B,) int32) on the device — one

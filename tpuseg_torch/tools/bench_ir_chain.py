@@ -162,7 +162,8 @@ def main(argv) -> int:
             got = chain(fns[label])
             torch.cuda.synchronize()
             err = (got.float() - want).abs().max().item()
-            dev_ms = kernel_device_ms(lambda: chain(fns[label]), 3, "ir_block")
+            dev_ms = kernel_device_ms(lambda: chain(fns[label]), 3, "ir_block",
+                                      launches=4)
             dev_ms = None if dev_ms is None else dev_ms / 4
             row = {"ms": statistics.median(ev[label]), "ms_rounds": ev[label],
                    "device_ms_per_launch": dev_ms,
