@@ -88,8 +88,10 @@ N_DECODE = 128  # B * G on the main path
 MAIN_SHAPES = [(0, 16, 16, 256), (1, 32, 32, 128), (2, 64, 64, 64),
                (3, 96, 96, 32), (4, 192, 192, 32)]
 # (N, H, W) held against the plain version at every width: H, W not
-# multiples of any tile; N = 1 with fewer tiles than a persistent grid
-RAGGED_SHAPES = [(5, 20, 28), (3, 40, 24), (1, 20, 28)]
+# multiples of any tile; N = 1 with fewer tiles than a persistent grid; an
+# image smaller than one tile
+RAGGED_SHAPES = [(5, 20, 28), (3, 40, 24), (1, 20, 28), (2, 13, 11),
+                 (1, 5, 3)]
 
 
 def log(*a):
@@ -1238,6 +1240,12 @@ def main() -> int:
             f"f32 ir_chain launches {f32_launches} != 5 levels x 4 blocks x "
             f"{p_f32.rounds_run} rounds")
     counts_f32 = np.concatenate([o[1] for o in outs32])
+    f32_rows = [r for r in rows
+                if r["dtype"] == "float32" and r["skip"] == (r["level"] > 0)]
+    f32_round_ms = sum(r["ms"] for r in f32_rows)
+    log(f"  f32: {len(imgs) / dt_f32:.2f} img/s beside the f32 ir_chain's "
+        f"{f32_round_ms:.2f} ms a round (phase 2's five chain calls; "
+        f"{f32_launches} launches here)")
     log(f"bf16-vs-f32 count agreement {np.mean(counts_f32 == counts_bf16):.4f}"
         f" (mean |diff| {np.abs(counts_f32 - counts_bf16).mean():.4f}); f32 "
         f"rounds {p_f32.rounds_run}, f32 ir_chain launches {f32_launches} "
@@ -1272,8 +1280,6 @@ def main() -> int:
     # level but the first
     path_rows = [r for r in rows
                  if r["dtype"] == "bfloat16" and r["skip"] == (r["level"] > 0)]
-    f32_rows = [r for r in rows
-                if r["dtype"] == "float32" and r["skip"] == (r["level"] > 0)]
     chain_round_ms = sum(r["ms"] for r in path_rows)
     log(f"batch 0 breakdown (bf16): preprocess+backbone+prep {prep_ms:.1f} ms,"
         f" extraction {ext_ms:.1f} ms over {r1} rounds; ir_chain "
@@ -1320,6 +1326,7 @@ def main() -> int:
         "img_per_s_bf16": len(imgs) / dt_main,
         "ms_per_batch_bf16": 1e3 * dt_main / len(batches),
         "img_per_s_f32": len(imgs) / dt_f32,
+        "f32_ir_chain_ms_per_round": f32_round_ms,
         "img_per_s_bf16_nosync": len(imgs) / dt_nosync,
         "sbd": sbd, "abs_dic": float(dic), "fg_dice": fgd,
         "rounds": rounds, "batches": len(batches),

@@ -28,9 +28,10 @@ CHANNELS = (256, 128, 64, 32, 32)
 BLOCKS = ("dil1a", "dil1b", "dil2a", "dil2b")
 # (pyramid level, H, W); 13 rows is not a multiple of any tile height
 SHAPES = [(0, 8, 8), (1, 8, 16), (2, 13, 12), (3, 16, 16), (4, 24, 24)]
-# (N, H, W) at every width on the card: H, W not multiples of the tiles,
-# and N = 1 with fewer tiles than a persistent grid has blocks
-RAGGED = [(5, 20, 28), (3, 40, 24), (1, 20, 28)]
+# (N, H, W) at every width on the card: H, W not multiples of the tiles
+# (8 x 8, 8 x 16 and 16 x 16 at some width), one image smaller than a
+# tile, and N = 1 with fewer tiles than a persistent grid has blocks
+RAGGED = [(5, 20, 28), (3, 40, 24), (1, 20, 28), (2, 13, 11), (1, 5, 3)]
 
 
 @pytest.fixture(scope="module")

@@ -85,216 +85,6 @@ __device__ __forceinline__ float relu6f(float v) {
   return fminf(fmaxf(v, 0.f), 6.f);
 }
 
-template <int C, int TH, int TW, int KC>
-struct Tile {
-  static constexpr int kHid = 2 * C;
-  static constexpr int kHW = TW + 2;             // halo tile width
-  static constexpr int kHP = (TH + 2) * kHW;     // halo tile pixels
-  static constexpr int kTP = TH * TW;            // output tile pixels
-  static constexpr int kXS = C + 1;              // padded rows: odd strides
-  static constexpr int kKP = KC + 1;             //   spread smem banks
-  // projection register tile: kRP pixels x kRC channels per thread
-  static constexpr int kRC = 8;
-  static constexpr int kCG = C / kRC;            // channel groups
-  static constexpr int kPG = kThreads / kCG;     // pixel groups
-  static constexpr int kRP = kTP / kPG;
-  // expansion register tile: 4 halo pixels x 4 hidden channels per thread
-  static constexpr int kQ4 = kHP / 4;
-  static constexpr int kJ4 = KC / 4;
-  // shared memory carve-up, in floats
-  static constexpr int kOffW1 = kHP * kXS;
-  static constexpr int kOffH = kOffW1 + C * KC;
-  static constexpr int kOffD = kOffH + kHP * kKP;
-  static constexpr int kOffW2 = kOffD + kTP * kKP;
-  static constexpr int kOffB1 = kOffW2 + KC * C;
-  static constexpr int kOffB2 = kOffB1 + KC;
-  static constexpr int kOffWD = kOffB2 + KC;
-  static constexpr int kFloats = kOffWD + 9 * KC;
-  static constexpr size_t kBytes = sizeof(float) * kFloats;
-
-  static_assert(C % kRC == 0 && kThreads % kCG == 0, "channel split");
-  static_assert(kTP % kPG == 0 && kRP >= 1, "pixel split");
-  static_assert(kHP % 4 == 0 && KC % 4 == 0 && kHid % KC == 0,
-                "expansion split");
-  static_assert(kBytes <= 232448, "shared memory per block");
-};
-
-template <int C, int TH, int TW, int KC>
-__global__ void __launch_bounds__(kThreads, 1)
-ir_block_kernel(const float* __restrict__ x, const float* __restrict__ x1u,
-                float* __restrict__ y, const float* __restrict__ w1,
-                const float* __restrict__ b1, const float* __restrict__ wd,
-                const float* __restrict__ b2, const float* __restrict__ w2,
-                const float* __restrict__ b3, int H, int W, int tiles_w) {
-  using L = Tile<C, TH, TW, KC>;
-  extern __shared__ float smem[];
-  float* xs = smem;
-  float* w1s = smem + L::kOffW1;
-  float* hs = smem + L::kOffH;
-  float* ds = smem + L::kOffD;
-  float* w2s = smem + L::kOffW2;
-  float* b1s = smem + L::kOffB1;
-  float* b2s = smem + L::kOffB2;
-  float* wds = smem + L::kOffWD;
-
-  const int tid = threadIdx.x;
-  const int y0 = (blockIdx.x / tiles_w) * TH;
-  const int x0 = (blockIdx.x % tiles_w) * TW;
-  const size_t img = (size_t)blockIdx.y * H * W * C;
-
-  // the block input on the halo tile, zero outside the image; block 3 of
-  // the chain adds the mid-chain skip here
-  for (int i = tid; i < L::kHP * C; i += kThreads) {
-    const int q = i / C, c = i - q * C;
-    const int gy = y0 - 1 + q / L::kHW, gx = x0 - 1 + q % L::kHW;
-    float v = 0.f;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      const size_t off = img + ((size_t)gy * W + gx) * C + c;
-      v = x[off];
-      if (x1u != nullptr) v += x1u[off];
-    }
-    xs[q * L::kXS + c] = v;
-  }
-
-  const int cg = tid % L::kCG, pg = tid / L::kCG;
-  float acc[L::kRP][L::kRC];
-#pragma unroll
-  for (int i = 0; i < L::kRP; ++i)
-#pragma unroll
-    for (int r = 0; r < L::kRC; ++r) acc[i][r] = 0.f;
-
-  for (int c0 = 0; c0 < L::kHid; c0 += KC) {
-    // this hidden chunk's weights: W1 (C, 2C) columns, W2 (2C, C) rows
-    for (int i = tid; i < C * KC; i += kThreads) {
-      const int k = i / KC, j = i - k * KC;
-      w1s[i] = w1[(size_t)k * L::kHid + c0 + j];
-      w2s[i] = w2[(size_t)c0 * C + i];
-    }
-    for (int i = tid; i < KC; i += kThreads) {
-      b1s[i] = b1[c0 + i];
-      b2s[i] = b2[c0 + i];
-    }
-    for (int i = tid; i < 9 * KC; i += kThreads) {
-      const int t = i / KC, j = i - t * KC;
-      wds[i] = wd[t * L::kHid + c0 + j];
-    }
-    __syncthreads();
-
-    // 1. expansion on the halo tile
-    for (int it = tid; it < L::kQ4 * L::kJ4; it += kThreads) {
-      const int qg = it / L::kJ4, jg = it - qg * L::kJ4;
-      float a[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int m = 0; m < 4; ++m) a[i][m] = b1s[jg + m * L::kJ4];
-      const float* xr = xs + qg * L::kXS;
-#pragma unroll 4
-      for (int k = 0; k < C; ++k) {
-        float xv[4], wv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) xv[i] = xr[i * L::kQ4 * L::kXS + k];
-#pragma unroll
-        for (int m = 0; m < 4; ++m) wv[m] = w1s[k * KC + jg + m * L::kJ4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int m = 0; m < 4; ++m) a[i][m] = fmaf(xv[i], wv[m], a[i][m]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int q = qg + i * L::kQ4;
-        const int gy = y0 - 1 + q / L::kHW, gx = x0 - 1 + q % L::kHW;
-        const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-#pragma unroll
-        for (int m = 0; m < 4; ++m)
-          hs[q * L::kKP + jg + m * L::kJ4] = inside ? relu6f(a[i][m]) : 0.f;
-      }
-    }
-    __syncthreads();
-
-    // 2. depthwise 3x3 on the output tile
-    for (int i = tid; i < L::kTP * KC; i += kThreads) {
-      const int p = i / KC, j = i - p * KC;
-      const int py = p / TW, px = p - py * TW;
-      float s = b2s[j];
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx)
-          s = fmaf(hs[((py + dy) * L::kHW + px + dx) * L::kKP + j],
-                   wds[(dy * 3 + dx) * KC + j], s);
-      ds[p * L::kKP + j] = relu6f(s);
-    }
-    __syncthreads();
-
-    // 3. projection of this chunk into the register accumulators
-#pragma unroll 4
-    for (int k = 0; k < KC; ++k) {
-      float dv[L::kRP], wv[L::kRC];
-#pragma unroll
-      for (int i = 0; i < L::kRP; ++i) dv[i] = ds[(pg + i * L::kPG) * L::kKP + k];
-#pragma unroll
-      for (int r = 0; r < L::kRC; ++r) wv[r] = w2s[k * C + cg + r * L::kCG];
-#pragma unroll
-      for (int i = 0; i < L::kRP; ++i)
-#pragma unroll
-        for (int r = 0; r < L::kRC; ++r) acc[i][r] = fmaf(dv[i], wv[r], acc[i][r]);
-    }
-    __syncthreads();
-  }
-
-  // residual + b3, store the tile's in-image pixels
-#pragma unroll
-  for (int i = 0; i < L::kRP; ++i) {
-    const int p = pg + i * L::kPG;
-    const int py = p / TW, px = p - py * TW;
-    const int gy = y0 + py, gx = x0 + px;
-    if (gy >= H || gx >= W) continue;
-    const float* vr = xs + ((py + 1) * L::kHW + px + 1) * L::kXS;
-    float* yr = y + img + ((size_t)gy * W + gx) * C;
-#pragma unroll
-    for (int r = 0; r < L::kRC; ++r) {
-      const int c = cg + r * L::kCG;
-      yr[c] = vr[c] + acc[i][r] + b3[c];
-    }
-  }
-}
-
-template <int C, int TH, int TW, int KC>
-cudaError_t launch(const void* x, const void* x1u, void* y, const void* w1,
-                   const void* b1, const void* wd, const void* b2,
-                   const void* w2, const void* b3, int n, int h, int w,
-                   cudaStream_t stream) {
-  using L = Tile<C, TH, TW, KC>;
-  auto kern = ir_block_kernel<C, TH, TW, KC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
-  if (err != cudaSuccess) return err;
-  const int tiles_w = (w + TW - 1) / TW, tiles_h = (h + TH - 1) / TH;
-  const dim3 grid(tiles_w * tiles_h, n);
-  kern<<<grid, kThreads, L::kBytes, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(x1u),
-      static_cast<float*>(y), static_cast<const float*>(w1),
-      static_cast<const float*>(b1), static_cast<const float*>(wd),
-      static_cast<const float*>(b2), static_cast<const float*>(w2),
-      static_cast<const float*>(b3), h, w, tiles_w);
-  return cudaGetLastError();
-}
-
-cudaError_t dispatch(int c, const void* x, const void* x1u, void* y,
-                     const void* w1, const void* b1, const void* wd,
-                     const void* b2, const void* w2, const void* b3, int n,
-                     int h, int w, cudaStream_t s) {
-  switch (c) {
-    case 256: return launch<256, 8, 8, 32>(x, x1u, y, w1, b1, wd, b2, w2, b3, n, h, w, s);
-    case 128: return launch<128, 8, 16, 32>(x, x1u, y, w1, b1, wd, b2, w2, b3, n, h, w, s);
-    case 64: return launch<64, 16, 16, 32>(x, x1u, y, w1, b1, wd, b2, w2, b3, n, h, w, s);
-    case 32: return launch<32, 16, 32, 16>(x, x1u, y, w1, b1, wd, b2, w2, b3, n, h, w, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // bfloat16 path: mma.sync products, register epilogues, cp.async pipeline
 // ---------------------------------------------------------------------------
@@ -779,6 +569,459 @@ cudaError_t dispatch_tc(int c, const void* x, const void* x1u, void* y,
     case 128: return launch_tc<128, 16, 16, 32, 0, 1, 512>(x, x1u, y, w1, b1, wd, b2, w2, b3, n, h, w, s);
     case 64: return launch_tc<64, 8, 16, 32, 1, 2>(x, x1u, y, w1, b1, wd, b2, w2, b3, n, h, w, s);
     case 32: return launch_tc<32, 16, 16, 32, 2, 2>(x, x1u, y, w1, b1, wd, b2, w2, b3, n, h, w, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// float32 path: FFMA register tiles fed by 16-byte shared loads, cp.async
+// pipeline
+// ---------------------------------------------------------------------------
+
+// the depthwise's segments per tile row: as many as keep the items (rows x
+// segments x channel quads) within the block
+constexpr int dw_segments(int th, int tw, int quads, int threads) {
+  int seg = 1;
+  while (tw % (2 * seg) == 0 && th * quads * 2 * seg <= threads) seg *= 2;
+  return seg;
+}
+
+// C channels, a TH x TW output tile, the 2C hidden in chunks of KC; kMode,
+// kBlocks and kT as for TcTile.  The expansion gives a thread PX halo pixels
+// x 4 hidden channels, its C-long sums split over KS lanes of a warp (one
+// lane quarter, half or the whole warp apart, summed by shuffles); the
+// projection gives a thread RP pixels x kRC output channels.
+template <int C, int TH, int TW, int KC, int kMode, int kBlocks, int kT,
+          int PX, int KS, int RP>
+struct Tile {
+  static constexpr bool kKeep = kMode >= 1;
+  static constexpr int kXBufs = kMode == 2 ? 2 : 1;
+  static constexpr int kHid = 2 * C;
+  static constexpr int kChunks = kHid / KC;
+  static constexpr int kStages = kKeep ? kChunks : 2;
+  static constexpr int kHW = TW + 2;
+  static constexpr int kHP = (TH + 2) * kHW;           // halo tile pixels
+  static constexpr int kHPp = (kHP + PX - 1) / PX * PX;  // ... in PX groups
+  static constexpr int kTP = TH * TW;
+  // row strides (floats) 16 bytes past a multiple of 128 bytes: the
+  // 16-byte loads of neighbouring pixels' rows fall in distinct banks
+  static constexpr int kLX = C + 4;   // block input
+  static constexpr int kLH = KC + 4;  // hidden
+  static constexpr int kLD = KC + 4;  // depthwise output
+  // expansion items: kNQ pixel groups (pixels q, q + kNQ, ...) x kJ4
+  // channel quads, each on KS lanes
+  static constexpr int kJ4 = KC / 4;
+  static constexpr int kNQ = kHPp / PX;
+  static constexpr int kItems = kNQ * kJ4;
+  static constexpr int kLanes = 32 / KS;  // items of a warp
+  static constexpr int kKL = C / KS;      // terms of a lane's sum
+  // projection: quads q, q + kNCG, ... of pixels p, p + kNPG, ...; a warp
+  // spans kLC channel groups x 32 / kLC pixel groups
+  static constexpr int kRC = kTP * C / (kT * RP);
+  static constexpr int kRQ = kRC / 4;
+  static constexpr int kNCG = C / kRC;
+  static constexpr int kNPG = kT / kNCG;
+  static constexpr int kLC = kNCG < 4 ? kNCG : 4;
+  static constexpr int kWC = kNCG / kLC;
+  // depthwise: a thread slides the 3x3 window over kSW pixels of one row
+  // for one channel quad
+  static constexpr int kSeg = dw_segments(TH, TW, kJ4, kT);
+  static constexpr int kSW = TW / kSeg;
+  // per chunk: b1 (KC), b2 (KC), the 9 depthwise taps (9 x KC)
+  static constexpr int kVec = 11 * KC;
+  // shared memory carve-up, in bytes (128-aligned regions)
+  static constexpr size_t kXBytes = align128(4ull * kHPp * kLX);
+  static constexpr size_t kOffW1 = kXBufs * kXBytes;
+  static constexpr size_t kOffW2 = kOffW1 + align128(4ull * kStages * C * KC);
+  static constexpr size_t kOffH = kOffW2 + align128(4ull * kStages * KC * C);
+  static constexpr size_t kOffD = kOffH + align128(4ull * kHP * kLH);
+  static constexpr size_t kOffV = kOffD + align128(4ull * kTP * kLD);
+  static constexpr size_t kOffB3 = kOffV + align128(4ull * kStages * kVec);
+  static constexpr size_t kBytes = kOffB3 + 4ull * C;
+
+  static_assert(C % 32 == 0 && KC % 4 == 0 && kHid % KC == 0, "chunks");
+  static_assert(kT % 32 == 0 && (KS == 1 || KS == 2 || KS == 4) &&
+                    kKL % 4 == 0, "expansion split");
+  static_assert(kRC % 4 == 0 && kTP * C == kT * RP * kRC &&
+                    kNCG % kLC == 0 && (kT / 32) % kWC == 0 &&
+                    kNPG * RP == kTP, "projection split");
+  // an SM has 228 KB of shared memory; each block leaves 1 KB reserved
+  static_assert(kBytes <= 232448 && kBlocks * (kBytes + 1024) <= 233472,
+                "shared memory for kBlocks blocks per SM");
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ float comp(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ float4 relu6f4(float4 v) {
+  return make_float4(relu6f(v.x), relu6f(v.y), relu6f(v.z), relu6f(v.w));
+}
+// s = fma(h, t, s) lane by lane
+__device__ __forceinline__ void fma4(float4& s, const float4& h,
+                                     const float4& t) {
+  s.x = fmaf(h.x, t.x, s.x);
+  s.y = fmaf(h.y, t.y, s.y);
+  s.z = fmaf(h.z, t.z, s.z);
+  s.w = fmaf(h.w, t.w, s.w);
+}
+
+template <int C, int TH, int TW, int KC, int kMode, int kBlocks, int kT,
+          int PX, int KS, int RP>
+__global__ void __launch_bounds__(kT, kBlocks)
+ir_block_kernel(const float* __restrict__ x, const float* __restrict__ x1u,
+                float* __restrict__ y, const float* __restrict__ w1,
+                const float* __restrict__ b1, const float* __restrict__ wd,
+                const float* __restrict__ b2, const float* __restrict__ w2,
+                const float* __restrict__ b3, int H, int W, int tiles_w,
+                int tiles_img, int n_tiles) {
+  using L = Tile<C, TH, TW, KC, kMode, kBlocks, kT, PX, KS, RP>;
+  constexpr bool kKeep = L::kKeep;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* xs = reinterpret_cast<float*>(smem_raw);
+  float* w1s = reinterpret_cast<float*>(smem_raw + L::kOffW1);
+  float* w2s = reinterpret_cast<float*>(smem_raw + L::kOffW2);
+  float* hs = reinterpret_cast<float*>(smem_raw + L::kOffH);
+  float* ds = reinterpret_cast<float*>(smem_raw + L::kOffD);
+  float* vs = reinterpret_cast<float*>(smem_raw + L::kOffV);
+  float* b3s = reinterpret_cast<float*>(smem_raw + L::kOffB3);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // projection: this thread's channel group and pixel group
+  const int cgt = (warp % L::kWC) * L::kLC + lane % L::kLC;
+  const int pgt = (warp / L::kWC) * (32 / L::kLC) + lane / L::kLC;
+  // expansion: this lane's part of the sums and its item in the warp
+  const int ks = lane / L::kLanes, li = lane % L::kLanes;
+
+  // hidden chunk k into stage s: W1 columns, W2 rows, b1, b2, taps
+  auto load_chunk = [&](int k, int s) {
+    const int c0 = k * KC;
+    float* w1d = w1s + s * C * KC;
+    constexpr int kV1 = KC / 4;
+    for (int i = tid; i < C * kV1; i += kT) {
+      const int r = i / kV1, v = i - r * kV1;
+      cp16(w1d + r * KC + v * 4, w1 + (size_t)r * L::kHid + c0 + v * 4);
+    }
+    float* w2d = w2s + s * KC * C;
+    constexpr int kV2 = C / 4;
+    for (int i = tid; i < KC * kV2; i += kT)
+      cp16(w2d + i * 4, w2 + (size_t)c0 * C + i * 4);
+    float* vd = vs + s * L::kVec;
+    for (int i = tid; i < 11 * kV1; i += kT) {
+      const int r = i / kV1, v = i - r * kV1;
+      const float* src = r == 0   ? b1 + c0
+                         : r == 1 ? b2 + c0
+                                  : wd + (r - 2) * L::kHid + c0;
+      cp16(vd + r * KC + v * 4, src + v * 4);
+    }
+  };
+
+  constexpr int kCV = C / 4;  // 16-byte vectors per pixel
+  constexpr int kXE = L::kXBytes / 4;  // floats per input buffer
+  // the block input on the tile's halo into xt; zero outside the image and
+  // in the padding rows
+  auto load_input = [&](int tile, float* xt) {
+    const int n = tile / tiles_img, rem = tile - n * tiles_img;
+    const int y0 = (rem / tiles_w) * TH, x0 = (rem % tiles_w) * TW;
+    const size_t img = (size_t)n * H * W * C;
+    for (int i = tid; i < L::kHPp * kCV; i += kT) {
+      const int q = i / kCV, c = (i - q * kCV) * 4;
+      const int gy = y0 - 1 + q / L::kHW, gx = x0 - 1 + q % L::kHW;
+      const bool ok = q < L::kHP && gy >= 0 && gy < H && gx >= 0 && gx < W;
+      cp16(xt + q * L::kLX + c,
+           ok ? x + img + ((size_t)gy * W + gx) * C + c : x, ok ? 16 : 0);
+    }
+  };
+
+  for (int i = tid; i < C / 4; i += kT) cp16(b3s + i * 4, b3 + i * 4);
+  if constexpr (kKeep) {
+    for (int k = 0; k < L::kChunks; ++k) load_chunk(k, k);
+  } else {
+    load_chunk(0, 0);
+  }
+  if constexpr (L::kXBufs == 2) {
+    if ((int)blockIdx.x < n_tiles) load_input(blockIdx.x, xs);
+  }
+  cp_commit();
+
+  int seq = 0;  // chunks computed: a streamed chunk's stage
+  int buf = 0;  // input buffer of this tile
+  for (int tile = blockIdx.x; tile < n_tiles;
+       tile += gridDim.x, buf ^= L::kXBufs - 1) {
+    const int n = tile / tiles_img, rem = tile - n * tiles_img;
+    const int y0 = (rem / tiles_w) * TH, x0 = (rem % tiles_w) * TW;
+    const size_t img = (size_t)n * H * W * C;
+    float* xt = xs + buf * kXE;
+    if constexpr (L::kXBufs == 1) {
+      load_input(tile, xt);
+      cp_commit();
+    }
+    cp_wait_all();
+    // block 3 of the chain adds the mid-chain skip, on the elements each
+    // thread copied itself
+    if (x1u != nullptr) {
+      for (int i = tid; i < L::kHPp * kCV; i += kT) {
+        const int q = i / kCV, c = (i - q * kCV) * 4;
+        const int gy = y0 - 1 + q / L::kHW, gx = x0 - 1 + q % L::kHW;
+        if (!(q < L::kHP && gy >= 0 && gy < H && gx >= 0 && gx < W)) continue;
+        const float4 u = __ldg(reinterpret_cast<const float4*>(
+            x1u + img + ((size_t)gy * W + gx) * C + c));
+        float4 v = ld4(xt + q * L::kLX + c);
+        v.x += u.x; v.y += u.y; v.z += u.z; v.w += u.w;
+        st4(xt + q * L::kLX + c, v);
+      }
+    }
+    // the next tile's input lands while this one computes
+    if constexpr (L::kXBufs == 2) {
+      if (tile + (int)gridDim.x < n_tiles) {
+        load_input(tile + gridDim.x, xs + (buf ^ 1) * kXE);
+        cp_commit();
+      }
+    }
+
+    float4 acc[RP][L::kRQ];
+#pragma unroll
+    for (int i = 0; i < RP; ++i)
+#pragma unroll
+      for (int r = 0; r < L::kRQ; ++r) acc[i][r] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+    for (int k = 0; k < L::kChunks; ++k, ++seq) {
+      const int s = kKeep ? k : (seq & 1);
+      const float* w1c = w1s + s * C * KC;
+      const float* w2c = w2s + s * KC * C;
+      const float* b1c = vs + s * L::kVec;
+      const float* b2c = b1c + KC;
+      const float* wdc = b2c + KC;
+      if constexpr (!kKeep) cp_wait_all();  // this chunk's weights
+      // kept weights: the chunks' phases are ordered by the two barriers
+      // below; only the tile's input needs one here
+      if (!kKeep || k == 0) __syncthreads();
+      // the next chunk's weights land while this one computes: stage s ^ 1
+      // was last read by the chunk before, which every thread has finished
+      if constexpr (!kKeep) {
+        if (k + 1 < L::kChunks)
+          load_chunk(k + 1, s ^ 1);
+        else if (tile + (int)gridDim.x < n_tiles)
+          load_chunk(0, s ^ 1);
+        cp_commit();
+      }
+
+      // 1. expansion h = relu6(b1 + xs . W1), k ascending, zero outside the
+      //    image; PX pixels x 4 channels a thread from 16-byte loads along k
+      for (int ib = warp * L::kLanes; ib < L::kItems; ib += kT / KS) {
+        const int it = ib + li < L::kItems ? ib + li : ib;
+        const int jg = it % L::kJ4, pq = it / L::kJ4;
+        float4 a[PX];
+        const float4 bias = ks == 0 ? ld4(b1c + jg * 4)
+                                    : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int i = 0; i < PX; ++i) a[i] = bias;
+        const float* xr = xt + pq * L::kLX + ks * L::kKL;
+        const float* wr = w1c + ks * L::kKL * KC + jg * 4;
+#pragma unroll 2
+        for (int kk = 0; kk < L::kKL; kk += 4) {
+          float4 xv[PX];
+#pragma unroll
+          for (int i = 0; i < PX; ++i) xv[i] = ld4(xr + i * L::kNQ * L::kLX + kk);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float4 wv = ld4(wr + (kk + e) * KC);
+#pragma unroll
+            for (int i = 0; i < PX; ++i) {
+              const float xe = comp(xv[i], e);
+              a[i].x = fmaf(xe, wv.x, a[i].x);
+              a[i].y = fmaf(xe, wv.y, a[i].y);
+              a[i].z = fmaf(xe, wv.z, a[i].z);
+              a[i].w = fmaf(xe, wv.w, a[i].w);
+            }
+          }
+        }
+        if constexpr (KS > 1) {
+#pragma unroll
+          for (int o = L::kLanes; o < 32; o *= 2)
+#pragma unroll
+            for (int i = 0; i < PX; ++i) {
+              a[i].x += __shfl_xor_sync(0xffffffffu, a[i].x, o);
+              a[i].y += __shfl_xor_sync(0xffffffffu, a[i].y, o);
+              a[i].z += __shfl_xor_sync(0xffffffffu, a[i].z, o);
+              a[i].w += __shfl_xor_sync(0xffffffffu, a[i].w, o);
+            }
+        }
+        if (ib + li < L::kItems) {
+#pragma unroll
+          for (int i = 0; i < PX; ++i) {
+            const int q = pq + i * L::kNQ;
+            if (i % KS != ks || q >= L::kHP) continue;  // one lane stores
+            const int gy = y0 - 1 + q / L::kHW, gx = x0 - 1 + q % L::kHW;
+            const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+            st4(hs + q * L::kLH + jg * 4,
+                inside ? relu6f4(a[i]) : make_float4(0.f, 0.f, 0.f, 0.f));
+          }
+        }
+      }
+      __syncthreads();
+
+      // 2. depthwise 3x3: s = b2, then the taps row by row, a window of 3
+      //    columns sliding along kSW pixels of one row, 4 channels a thread
+      for (int it = tid; it < TH * L::kSeg * L::kJ4; it += kT) {
+        constexpr int kRS = L::kHW * L::kLH;
+        const int jg = it % L::kJ4, rs = it / L::kJ4;
+        const int row = rs / L::kSeg, cx = (rs % L::kSeg) * L::kSW;
+        float4 wt[9];
+#pragma unroll
+        for (int t = 0; t < 9; ++t) wt[t] = ld4(wdc + t * KC + jg * 4);
+        const float4 bias = ld4(b2c + jg * 4);
+        const float* h0 = hs + (row * L::kHW + cx) * L::kLH + jg * 4;
+        float4 a[3], m[3];
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          a[dy] = ld4(h0 + dy * kRS);
+          m[dy] = ld4(h0 + dy * kRS + L::kLH);
+        }
+        float* dr = ds + (row * TW + cx) * L::kLD + jg * 4;
+#pragma unroll
+        for (int px = 0; px < L::kSW; ++px) {
+          float4 e[3];
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy)
+            e[dy] = ld4(h0 + dy * kRS + (px + 2) * L::kLH);
+          float4 sum = bias;
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy) {
+            fma4(sum, a[dy], wt[3 * dy]);
+            fma4(sum, m[dy], wt[3 * dy + 1]);
+            fma4(sum, e[dy], wt[3 * dy + 2]);
+          }
+          st4(dr + px * L::kLD, relu6f4(sum));
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy) {
+            a[dy] = m[dy];
+            m[dy] = e[dy];
+          }
+        }
+      }
+      __syncthreads();
+
+      // 3. projection acc += ds . W2 (this chunk's rows), k ascending
+#pragma unroll 2
+      for (int kk = 0; kk < KC; kk += 4) {
+        float4 dv[RP];
+#pragma unroll
+        for (int i = 0; i < RP; ++i)
+          dv[i] = ld4(ds + (pgt + i * L::kNPG) * L::kLD + kk);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float4 wv[L::kRQ];
+#pragma unroll
+          for (int r = 0; r < L::kRQ; ++r)
+            wv[r] = ld4(w2c + (kk + e) * C + (cgt + r * L::kNCG) * 4);
+#pragma unroll
+          for (int i = 0; i < RP; ++i) {
+            const float de = comp(dv[i], e);
+#pragma unroll
+            for (int r = 0; r < L::kRQ; ++r) {
+              acc[i][r].x = fmaf(de, wv[r].x, acc[i][r].x);
+              acc[i][r].y = fmaf(de, wv[r].y, acc[i][r].y);
+              acc[i][r].z = fmaf(de, wv[r].z, acc[i][r].z);
+              acc[i][r].w = fmaf(de, wv[r].w, acc[i][r].w);
+            }
+          }
+        }
+      }
+    }
+
+    // y = v + acc + b3 from the registers, 16-byte stores
+#pragma unroll
+    for (int i = 0; i < RP; ++i) {
+      const int p = pgt + i * L::kNPG;
+      const int py = p / TW, px = p - py * TW;
+      const int gy = y0 + py, gx = x0 + px;
+      if (gy >= H || gx >= W) continue;
+      const float* vr = xt + ((py + 1) * L::kHW + px + 1) * L::kLX;
+      float* yr = y + img + ((size_t)gy * W + gx) * C;
+#pragma unroll
+      for (int r = 0; r < L::kRQ; ++r) {
+        const int c = (cgt + r * L::kNCG) * 4;
+        const float4 v = ld4(vr + c), b = ld4(b3s + c);
+        st4(yr + c, make_float4(v.x + acc[i][r].x + b.x,
+                                v.y + acc[i][r].y + b.y,
+                                v.z + acc[i][r].z + b.z,
+                                v.w + acc[i][r].w + b.w));
+      }
+    }
+    __syncthreads();  // xt takes a later tile
+  }
+}
+
+template <int C, int TH, int TW, int KC, int kMode, int kBlocks, int kT,
+          int PX, int KS, int RP>
+cudaError_t launch(const void* x, const void* x1u, void* y, const void* w1,
+                   const void* b1, const void* wd, const void* b2,
+                   const void* w2, const void* b3, int n, int h, int w,
+                   cudaStream_t stream) {
+  using L = Tile<C, TH, TW, KC, kMode, kBlocks, kT, PX, KS, RP>;
+  auto kern = ir_block_kernel<C, TH, TW, KC, kMode, kBlocks, kT, PX, KS, RP>;
+  static int resident = 0;  // blocks the card holds at once (kKeep)
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
+  if (err != cudaSuccess) return err;
+  const int tiles_w = (w + TW - 1) / TW, tiles_h = (h + TH - 1) / TH;
+  const int tiles_img = tiles_w * tiles_h, n_tiles = n * tiles_img;
+  int grid = n_tiles;
+  if (L::kKeep) {
+    if (resident == 0) {
+      int dev = 0, sms = 0, per_sm = 0;
+      if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+      if ((err = cudaDeviceGetAttribute(
+               &sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+        return err;
+      if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per_sm, kern, kT, L::kBytes)) != cudaSuccess)
+        return err;
+      resident = sms * (per_sm > 0 ? per_sm : 1);
+    }
+    grid = n_tiles < resident ? n_tiles : resident;
+  }
+  if (grid == 0) return cudaSuccess;
+  kern<<<grid, kT, L::kBytes, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(x1u),
+      static_cast<float*>(y), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(wd),
+      static_cast<const float*>(b2), static_cast<const float*>(w2),
+      static_cast<const float*>(b3), h, w, tiles_w, tiles_img, n_tiles);
+  return cudaGetLastError();
+}
+
+// Tiles of each width, <TH, TW, KC, kMode, kBlocks, threads, PX, KS, RP>:
+// the header says why, PERF.md holds the sets timed against them.  A
+// build may set IR_F32_<C> to time another set.
+#ifndef IR_F32_256
+#define IR_F32_256 8, 8, 16, 0, 1, 512, 4, 4, 4
+#endif
+#ifndef IR_F32_128
+#define IR_F32_128 8, 16, 32, 0, 1, 512, 6, 2, 4
+#endif
+#ifndef IR_F32_64
+#define IR_F32_64 16, 16, 32, 0, 1, 512, 6, 1, 4
+#endif
+#ifndef IR_F32_32
+#define IR_F32_32 8, 16, 32, 1, 2, 256, 6, 1, 4
+#endif
+
+cudaError_t dispatch(int c, const void* x, const void* x1u, void* y,
+                     const void* w1, const void* b1, const void* wd,
+                     const void* b2, const void* w2, const void* b3, int n,
+                     int h, int w, cudaStream_t s) {
+  switch (c) {
+    case 256: return launch<256, IR_F32_256>(x, x1u, y, w1, b1, wd, b2, w2, b3, n, h, w, s);
+    case 128: return launch<128, IR_F32_128>(x, x1u, y, w1, b1, wd, b2, w2, b3, n, h, w, s);
+    case 64: return launch<64, IR_F32_64>(x, x1u, y, w1, b1, wd, b2, w2, b3, n, h, w, s);
+    case 32: return launch<32, IR_F32_32>(x, x1u, y, w1, b1, wd, b2, w2, b3, n, h, w, s);
     default: return cudaErrorInvalidValue;
   }
 }

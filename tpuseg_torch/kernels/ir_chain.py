@@ -105,10 +105,12 @@ def ir_chain(x: torch.Tensor, x1u: Optional[torch.Tensor], w1, b1, wd, b2,
     _check(x, x1u, w1, b1, wd, b2, w2, b3)
     fn = _kernel_fn()
     n, h, w, c = x.shape
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = build.stream_handle(x.device)
+    # two buffers in turn: a block never writes the tensor it reads
+    bufs = (torch.empty_like(x), torch.empty_like(x))
     v = x
     for s in range(4):
-        out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        out = bufs[s % 2]
         skip = x1u.data_ptr() if (s == 2 and x1u is not None) else None
         err = fn(
             _DTYPE_CODE[x.dtype], v.data_ptr(), skip, out.data_ptr(),
