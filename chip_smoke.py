@@ -11,9 +11,10 @@ Builds the port's CUDA kernels (``ir_chain``, ``masked_softmax``,
    five main-path shapes (decode batch 128 = 32 images x 4 glimpses), in
    float32 and bfloat16, with and without the mid-chain skip, and times
    both (CUDA events per chain, ``torch.profiler`` device time per launch,
-   the share of the bound); then at ``RAGGED_SHAPES`` at every width
-   (tiles cut by the image edge, N = 1, fewer tiles than a persistent grid
-   has blocks);
+   the share of the bound of the kernel's route; in float32 also the bound
+   with the products on the CUDA cores); then at ``RAGGED_SHAPES`` at every
+   width (tiles cut by the image edge, N = 1, fewer tiles than a persistent
+   grid has blocks, an image smaller than a tile);
 2. runs the batched-inference path end to end in float32 on 4 synthetic
    256x256 images on the card (kernel) and on the CPU (plain version), with
    the committed checkpoint and stopping rule: counts must be equal and
@@ -22,8 +23,10 @@ Builds the port's CUDA kernels (``ir_chain``, ``masked_softmax``,
    CVPPP model, B=32, bfloat16) over 256 synthetic images, timed, with the
    kernel launch counter reset just before and read just after: the chain
    must have run 5 levels x 4 blocks x the rounds run; prints img/s and
-   SBD / |DiC| / FG dice against the synthetic ground truth, bf16-vs-f32
-   count agreement, and the same pass without the per-round done-sync;
+   SBD / |DiC| / FG dice against the synthetic ground truth; then the same
+   images in float32 (f32 img/s beside the f32 chain's ms a round, its
+   launches counted), bf16-vs-f32 count agreement, and the bf16 pass
+   without the per-round done-sync;
 4. holds the ``masked_softmax`` kernels, forward and backward, against
    their plain PyTorch version at ``(B, N, HW)`` = (2, 32, 65536) and
    (8, 32, 65536) with the instance masks of synthetic scenes (empty
@@ -77,10 +80,14 @@ import time
 
 import numpy as np
 
-# H100 SXM, dense: matrix products at the type's rate (tensor cores for
-# bf16), everything else at the float32 rate of the CUDA cores
-PEAK_MATMUL = {"float32": 67e12, "bfloat16": 989e12}
+# H100 SXM, dense (NVIDIA's data sheet): everything but matrix products at
+# the float32 rate of the CUDA cores; the products at the rate of the route
+# the ir_chain kernel takes: bf16 on the tensor cores, float32 as 3xTF32 on
+# the tensor cores (three TF32 products for each float32-accurate one, at
+# the TF32 dense rate of 494.7 TFLOP/s)
 PEAK_F32 = 67e12
+PEAK_3XTF32 = 494.7e12 / 3
+PEAK_MATMUL = {"float32": PEAK_3XTF32, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 N_DECODE = 128  # B * G on the main path
 # (level, H, W, C) of the main path's ir_chain calls at 256^2 with the 192
@@ -122,23 +129,27 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def chain_bound(n, h, w, c, dtype_name, with_skip):
+def chain_bound(n, h, w, c, dtype_name, with_skip, cuda_cores=False):
     """(bytes ms, operations ms): the least time for one chain call is the
     larger — inputs read once and the output written once at the memory
     rate, operations at the card's peak for their type.  Per pixel and
-    block: the two pointwise products (8 C^2 FLOPs) at the matrix rate;
-    the depthwise taps (36 C), the two bias + relu6 passes (12 C) and the
-    residual + b3 (2 C), accumulated in float32, at the CUDA cores' float32
-    rate.  In bf16 the two kinds run on different units, so the larger
-    time bounds; in float32 both share the CUDA cores and add."""
+    block: the two pointwise products (8 C^2 FLOPs) at the matrix rate of
+    the kernel's route (``PEAK_MATMUL``); the depthwise taps (36 C), the two
+    bias + relu6 passes (12 C) and the residual + b3 (2 C), accumulated in
+    float32, at the CUDA cores' float32 rate.  The two kinds run on
+    different units, so the larger time bounds.  ``cuda_cores``: the
+    float32 products on the CUDA cores too, where both kinds add (the
+    yardstick of a kernel that keeps its products off the tensor cores)."""
     es = 4 if dtype_name == "float32" else 2
     act = n * h * w * c * es
     weights = 4 * (2 * c * 2 * c * es + (2 * c * 2 + 2 * c * 9 + c) * 4)
     nbytes = act * (3 if with_skip else 2) + weights
     px = n * h * w * 4
-    mm_s = px * 8 * c * c / PEAK_MATMUL[dtype_name]
     other_s = px * 50 * c / PEAK_F32
-    ops_s = mm_s + other_s if dtype_name == "float32" else max(mm_s, other_s)
+    if cuda_cores:
+        ops_s = px * 8 * c * c / PEAK_F32 + other_s
+    else:
+        ops_s = max(px * 8 * c * c / PEAK_MATMUL[dtype_name], other_s)
     return 1e3 * nbytes / PEAK_BYTES, 1e3 * ops_s
 
 
@@ -193,6 +204,9 @@ def phase_kernel_vs_plain(model, dev):
                     KERNEL_NAME[dtype], launches=4)
                 b_ms, o_ms = chain_bound(N_DECODE, h, w, c, name,
                                          skip is not None)
+                core_ms = (max(chain_bound(N_DECODE, h, w, c, name,
+                                           skip is not None, True))
+                           if dtype == torch.float32 else None)
                 rows.append({
                     "level": lvl, "shape": [N_DECODE, h, w, c], "dtype": name,
                     "skip": skip is not None, "ms": k_ms, "plain_ms": p_ms,
@@ -200,6 +214,9 @@ def phase_kernel_vs_plain(model, dev):
                     else dev_ms / 4,
                     "bound_ms": max(b_ms, o_ms), "bytes_ms": b_ms,
                     "ops_ms": o_ms,
+                    # float32: the same work with every product on the
+                    # CUDA cores
+                    "bound_cuda_cores_ms": core_ms,
                     "bound_by": "bytes" if b_ms >= o_ms else "operations",
                     "bound_share": max(b_ms, o_ms) / k_ms,
                     "max_abs_err": err, "max_abs_y": scale,
@@ -210,8 +227,10 @@ def phase_kernel_vs_plain(model, dev):
                 log(f"  ir_chain L{lvl} {r['shape']} {name} skip={r['skip']}: "
                     f"kernel {k_ms:.3f} ms ({r['bound_share']:.1%} of its "
                     f"bound), device per launch {dev_txt}, plain {p_ms:.3f} "
-                    f"ms, bound {r['bound_ms']:.4f} ms, max|err| {err:.3e} "
-                    f"(max|y| {scale:.3e})")
+                    f"ms, bound {r['bound_ms']:.4f} ms"
+                    + ("" if core_ms is None else
+                       f" (products on the CUDA cores {core_ms:.4f} ms)")
+                    + f", max|err| {err:.3e} (max|y| {scale:.3e})")
         del x32, s32
     # ragged tiles, N = 1 and fewer tiles than a persistent grid has
     # blocks: the level of each width, both types, with and without the skip
@@ -1243,9 +1262,9 @@ def main() -> int:
     f32_rows = [r for r in rows
                 if r["dtype"] == "float32" and r["skip"] == (r["level"] > 0)]
     f32_round_ms = sum(r["ms"] for r in f32_rows)
-    log(f"  f32: {len(imgs) / dt_f32:.2f} img/s beside the f32 ir_chain's "
-        f"{f32_round_ms:.2f} ms a round (phase 2's five chain calls; "
-        f"{f32_launches} launches here)")
+    log(f"  f32 ir_chain: {f32_round_ms:.2f} ms a round (phase 2's five "
+        f"chain calls) beside {len(imgs) / dt_f32:.2f} f32 img/s, "
+        f"{f32_launches} launches in that pass")
     log(f"bf16-vs-f32 count agreement {np.mean(counts_f32 == counts_bf16):.4f}"
         f" (mean |diff| {np.abs(counts_f32 - counts_bf16).mean():.4f}); f32 "
         f"rounds {p_f32.rounds_run}, f32 ir_chain launches {f32_launches} "
@@ -1372,6 +1391,8 @@ def main() -> int:
         "f32_device_ms_per_launch": [r["device_ms_per_launch"]
                                      for r in f32_rows],
         "f32_bound_ms_per_level": [r["bound_ms"] for r in f32_rows],
+        "f32_bound_cuda_cores_ms_per_level": [r["bound_cuda_cores_ms"]
+                                              for r in f32_rows],
         "f32_plain_ms_per_level": [r["plain_ms"] for r in f32_rows],
         "launches_f32_inference": f32_launches,
         "launches_f32_parity": f32_parity_launches,

@@ -109,10 +109,10 @@ def test_wrapper_takes_plain_on_cpu_without_counting(ckpt):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_on_card(ckpt, dtype):
-    """f32: |err| <= 1e-4 max|y| (summation order).  bf16 storage: against
-    the f32 plain result on the same rounded inputs, <= 2e-2 max|y|.  The
-    main-path levels at small sizes, then ``RAGGED`` at each width (levels
-    0-3) with and without the mid-chain skip."""
+    """f32: |err| <= 1e-4 max|y| (3xTF32 products, summation order).  bf16
+    storage: against the f32 plain result on the same rounded inputs, <=
+    2e-2 max|y|.  The main-path levels at small sizes, then ``RAGGED`` at
+    each width (levels 0-3) with and without the mid-chain skip."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False

@@ -13,8 +13,9 @@
 // C = 32..256; input read once, output written once) the bound is
 // operations: in bf16 the float32 work on the CUDA cores (67 TFLOP/s) outlasts
 // both the tensor-core products (989 TFLOP/s) and memory (3.35 TB/s); in f32
-// everything shares the CUDA cores.  One launch per block moves each
-// intermediate through device memory, 4x a fused chain's activation bytes.
+// the products as 3xTF32 on the tensor cores (494.7 / 3 TFLOP/s) outlast
+// the CUDA-core work.  One launch per block moves each intermediate through
+// device memory, 4x a fused chain's activation bytes.
 //
 // Design: the 2C hidden never reaches device memory.  A thread block owns a
 // TH x TW output tile and keeps the input tile plus a one-pixel halo in
@@ -25,8 +26,32 @@
 //   3. acc += d . W2[chunk, :], acc in registers.
 // then writes y = v + acc + b3 (v includes x1u).
 //
-// float32 (ir_block_kernel): both products as f32 FMAs on the CUDA cores,
-// 8 pixels x 8 channels of accumulator per thread, weights loaded per chunk.
+// float32 (ir_block_kernel; f32 inference and the card-vs-CPU runs):
+// - both products on mma.sync.m16n8k8 as 3xTF32: each operand is split as
+//   its fragment is loaded into hi (rounded to TF32) and lo = v - hi, and
+//   a_lo.b_hi + a_hi.b_lo + a_hi.b_hi go into one f32 accumulator, each
+//   term issued across a warp's tiles so that no product waits on the one
+//   before.  Within 1.3e-5 of max|y| of the f32 plain chain at the main
+//   path's shapes, against 1e-4 allowed; single-pass TF32 misses that
+//   (4-6e-4, PERF.md);
+// - both epilogues on the accumulator registers, as in the bf16 path: the
+//   expansion adds b1, relu6 and the in-image mask and stores h in f32,
+//   the projection adds b3 and the residual and stores y, 8 bytes a lane;
+// - the depthwise slides a 3x3 window along one row, 4 channels a thread
+//   from 16-byte loads, the taps in registers;
+// - weights and the input tile arrive by cp.async as in the bf16 path:
+//   streamed through two stages at C >= 64, kept with a persistent grid
+//   at C = 32.
+// f32 doubles every byte of the bf16 tiles, so the tiles are smaller (C:
+// TH x TW, KC, mode, blocks per SM x threads, n8 tiles per expansion item;
+// dispatch): 256: 8 x 8, 16, streamed, 1 x 512, 2 (the halo input alone
+// takes 116 KB); 128: 8 x 16, 32, streamed, 1 x 512, 4; 64: 16 x 16, 32,
+// streamed, 1 x 512, 4; 32: 8 x 16, 32, kept, 2 x 256, 4.  At most 128
+// registers, no spills.  Per launch on an H100 (700 W) the five main-path
+// levels take 0.46-1.82 ms, 13-20% of the 3xTF32 operations bound (37-52%
+// of the bound with every product on the CUDA cores); the operand splits,
+// the depthwise and the cross products cost 12%, 15% and 24% of a round
+// (timed variants, PERF.md).
 //
 // bfloat16 (ir_block_tc_kernel), the main path's type:
 // - both products on mma.sync.m16n8k16 (bf16 in, f32 accumulate), operands
@@ -62,8 +87,19 @@
 // barriers between the three phases of a chunk are what is left (PERF.md).
 //
 // Tried and dropped (tpuseg_torch/tools/bench_ir_chain.py, each against
-// the others in one call; PERF.md has the times): the first version's
-// tiles (4 x 8, 8 x 8, 8 x 16, 16 x 16) streamed; 8 x 8 / 8 x 16 at KC 16
+// the others in one call; PERF.md has the times).  float32: the products
+// as FFMA register tiles on the CUDA cores (4-6 halo pixels x 4 channels
+// from 16-byte loads along k, the sum split over 2-4 lanes at C >= 128;
+// 4 pixels x 4-8 channels in the projection), bit-equal to the first
+// version where a sum stays on one lane, 1.3-2.2x faster than it but
+// 13-29% slower than 3xTF32 at every width; 3xTF32 with each tile's three
+// products issued back to back (asm volatile) and cvt.rna.tf32
+// conversions (no faster than FFMA); weights kept at C = 64 (8 x 8 or
+// 8 x 16 tiles: 16 x 16 does not fit beside them); 3 blocks per SM or the
+// next input prefetched at C = 32 (8 x 8 tiles); 1 or 2 n8 tiles per
+// expansion item at C <= 128; 256 threads at C = 256.  bfloat16: the
+// first version's tiles (4 x 8, 8 x 8, 8 x 16, 16 x 16) streamed; 8 x 8 /
+// 8 x 16 at KC 16
 // with two blocks of 256 threads at C >= 128 (kept until 512-thread blocks
 // beat them by 13-20%); KC 16 with 512 threads; larger tiles and 512
 // threads at C <= 64; three blocks per SM at C <= 64; the next input
@@ -574,8 +610,8 @@ cudaError_t dispatch_tc(int c, const void* x, const void* x1u, void* y,
 }
 
 // ---------------------------------------------------------------------------
-// float32 path: FFMA register tiles fed by 16-byte shared loads, cp.async
-// pipeline
+// float32 path: both products on mma.sync as 3xTF32, register epilogues,
+// cp.async pipeline
 // ---------------------------------------------------------------------------
 
 // the depthwise's segments per tile row: as many as keep the items (rows x
@@ -586,78 +622,17 @@ constexpr int dw_segments(int th, int tw, int quads, int threads) {
   return seg;
 }
 
-// C channels, a TH x TW output tile, the 2C hidden in chunks of KC; kMode,
-// kBlocks and kT as for TcTile.  The expansion gives a thread PX halo pixels
-// x 4 hidden channels, its C-long sums split over KS lanes of a warp (one
-// lane quarter, half or the whole warp apart, summed by shuffles); the
-// projection gives a thread RP pixels x kRC output channels.
-template <int C, int TH, int TW, int KC, int kMode, int kBlocks, int kT,
-          int PX, int KS, int RP>
-struct Tile {
-  static constexpr bool kKeep = kMode >= 1;
-  static constexpr int kXBufs = kMode == 2 ? 2 : 1;
-  static constexpr int kHid = 2 * C;
-  static constexpr int kChunks = kHid / KC;
-  static constexpr int kStages = kKeep ? kChunks : 2;
-  static constexpr int kHW = TW + 2;
-  static constexpr int kHP = (TH + 2) * kHW;           // halo tile pixels
-  static constexpr int kHPp = (kHP + PX - 1) / PX * PX;  // ... in PX groups
-  static constexpr int kTP = TH * TW;
-  // row strides (floats) 16 bytes past a multiple of 128 bytes: the
-  // 16-byte loads of neighbouring pixels' rows fall in distinct banks
-  static constexpr int kLX = C + 4;   // block input
-  static constexpr int kLH = KC + 4;  // hidden
-  static constexpr int kLD = KC + 4;  // depthwise output
-  // expansion items: kNQ pixel groups (pixels q, q + kNQ, ...) x kJ4
-  // channel quads, each on KS lanes
-  static constexpr int kJ4 = KC / 4;
-  static constexpr int kNQ = kHPp / PX;
-  static constexpr int kItems = kNQ * kJ4;
-  static constexpr int kLanes = 32 / KS;  // items of a warp
-  static constexpr int kKL = C / KS;      // terms of a lane's sum
-  // projection: quads q, q + kNCG, ... of pixels p, p + kNPG, ...; a warp
-  // spans kLC channel groups x 32 / kLC pixel groups
-  static constexpr int kRC = kTP * C / (kT * RP);
-  static constexpr int kRQ = kRC / 4;
-  static constexpr int kNCG = C / kRC;
-  static constexpr int kNPG = kT / kNCG;
-  static constexpr int kLC = kNCG < 4 ? kNCG : 4;
-  static constexpr int kWC = kNCG / kLC;
-  // depthwise: a thread slides the 3x3 window over kSW pixels of one row
-  // for one channel quad
-  static constexpr int kSeg = dw_segments(TH, TW, kJ4, kT);
-  static constexpr int kSW = TW / kSeg;
-  // per chunk: b1 (KC), b2 (KC), the 9 depthwise taps (9 x KC)
-  static constexpr int kVec = 11 * KC;
-  // shared memory carve-up, in bytes (128-aligned regions)
-  static constexpr size_t kXBytes = align128(4ull * kHPp * kLX);
-  static constexpr size_t kOffW1 = kXBufs * kXBytes;
-  static constexpr size_t kOffW2 = kOffW1 + align128(4ull * kStages * C * KC);
-  static constexpr size_t kOffH = kOffW2 + align128(4ull * kStages * KC * C);
-  static constexpr size_t kOffD = kOffH + align128(4ull * kHP * kLH);
-  static constexpr size_t kOffV = kOffD + align128(4ull * kTP * kLD);
-  static constexpr size_t kOffB3 = kOffV + align128(4ull * kStages * kVec);
-  static constexpr size_t kBytes = kOffB3 + 4ull * C;
-
-  static_assert(C % 32 == 0 && KC % 4 == 0 && kHid % KC == 0, "chunks");
-  static_assert(kT % 32 == 0 && (KS == 1 || KS == 2 || KS == 4) &&
-                    kKL % 4 == 0, "expansion split");
-  static_assert(kRC % 4 == 0 && kTP * C == kT * RP * kRC &&
-                    kNCG % kLC == 0 && (kT / 32) % kWC == 0 &&
-                    kNPG * RP == kTP, "projection split");
-  // an SM has 228 KB of shared memory; each block leaves 1 KB reserved
-  static_assert(kBytes <= 232448 && kBlocks * (kBytes + 1024) <= 233472,
-                "shared memory for kBlocks blocks per SM");
-};
-
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 __device__ __forceinline__ void st4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
-__device__ __forceinline__ float comp(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ void st2(float* p, float2 v) {
+  *reinterpret_cast<float2*>(p) = v;
 }
 __device__ __forceinline__ float4 relu6f4(float4 v) {
   return make_float4(relu6f(v.x), relu6f(v.y), relu6f(v.z), relu6f(v.w));
@@ -671,17 +646,358 @@ __device__ __forceinline__ void fma4(float4& s, const float4& h,
   s.w = fmaf(h.w, t.w, s.w);
 }
 
-template <int C, int TH, int TW, int KC, int kMode, int kBlocks, int kT,
-          int PX, int KS, int RP>
-__global__ void __launch_bounds__(kT, kBlocks)
+// hidden chunk k into stage s: W1 columns, W2 rows, b1, b2, taps
+template <class L>
+__device__ __forceinline__ void load_chunk(float* w1s, float* w2s, float* vs,
+                                           const float* w1, const float* b1,
+                                           const float* wd, const float* b2,
+                                           const float* w2, int k, int s) {
+  constexpr int C = L::C, KC = L::KC, kV1 = KC / 4, kV2 = C / 4;
+  const int c0 = k * KC;
+  float* w1d = w1s + s * C * L::kLW1;
+  for (int i = threadIdx.x; i < C * kV1; i += L::kT) {
+    const int r = i / kV1, v = i - r * kV1;
+    cp16(w1d + r * L::kLW1 + v * 4, w1 + (size_t)r * L::kHid + c0 + v * 4);
+  }
+  float* w2d = w2s + s * KC * L::kLW2;
+  for (int i = threadIdx.x; i < KC * kV2; i += L::kT) {
+    const int r = i / kV2, v = i - r * kV2;
+    cp16(w2d + r * L::kLW2 + v * 4, w2 + (size_t)(c0 + r) * C + v * 4);
+  }
+  float* vd = vs + s * L::kVec;
+  for (int i = threadIdx.x; i < 11 * kV1; i += L::kT) {
+    const int r = i / kV1, v = i - r * kV1;
+    const float* src = r == 0   ? b1 + c0
+                       : r == 1 ? b2 + c0
+                                : wd + (r - 2) * L::kHid + c0;
+    cp16(vd + r * KC + v * 4, src + v * 4);
+  }
+}
+
+// the block input on the halo of the tile at (y0, x0) of image n into xt;
+// zero outside the image and in the padding rows
+template <class L>
+__device__ __forceinline__ void load_input(float* xt, const float* x, int n,
+                                           int y0, int x0, int H, int W) {
+  constexpr int kCV = L::C / 4;  // 16-byte vectors per pixel
+  const size_t img = (size_t)n * H * W * L::C;
+  for (int i = threadIdx.x; i < L::kHPp * kCV; i += L::kT) {
+    const int q = i / kCV, c = (i - q * kCV) * 4;
+    const int gy = y0 - 1 + q / L::kHW, gx = x0 - 1 + q % L::kHW;
+    const bool ok = q < L::kHP && gy >= 0 && gy < H && gx >= 0 && gx < W;
+    cp16(xt + q * L::kLX + c,
+         ok ? x + img + ((size_t)gy * W + gx) * L::C + c : x, ok ? 16 : 0);
+  }
+}
+
+// block 3 of the chain adds the mid-chain skip, on the elements each thread
+// copied itself (load_input's split of the tile)
+template <class L>
+__device__ __forceinline__ void add_skip(float* xt, const float* x1u,
+                                         size_t img, int y0, int x0, int H,
+                                         int W) {
+  constexpr int kCV = L::C / 4;
+  for (int i = threadIdx.x; i < L::kHPp * kCV; i += L::kT) {
+    const int q = i / kCV, c = (i - q * kCV) * 4;
+    const int gy = y0 - 1 + q / L::kHW, gx = x0 - 1 + q % L::kHW;
+    if (!(q < L::kHP && gy >= 0 && gy < H && gx >= 0 && gx < W)) continue;
+    const float4 u = __ldg(reinterpret_cast<const float4*>(
+        x1u + img + ((size_t)gy * W + gx) * L::C + c));
+    float4 v = ld4(xt + q * L::kLX + c);
+    v.x += u.x; v.y += u.y; v.z += u.z; v.w += u.w;
+    st4(xt + q * L::kLX + c, v);
+  }
+}
+
+// d = relu6(dw3x3(h) + b2): s = b2, then the taps row by row, a window of
+// 3 columns sliding along kSW pixels of one row, 4 channels a thread
+template <class L>
+__device__ __forceinline__ void depthwise(const float* hs, float* ds,
+                                          const float* b2c,
+                                          const float* wdc) {
+  constexpr int KC = L::KC, kRS = L::kHW * L::kLH;
+  for (int it = threadIdx.x; it < L::TH * L::kSeg * L::kJ4; it += L::kT) {
+    const int jg = it % L::kJ4, rs = it / L::kJ4;
+    const int row = rs / L::kSeg, cx = (rs % L::kSeg) * L::kSW;
+    float4 wt[9];
+#pragma unroll
+    for (int t = 0; t < 9; ++t) wt[t] = ld4(wdc + t * KC + jg * 4);
+    const float4 bias = ld4(b2c + jg * 4);
+    const float* h0 = hs + (row * L::kHW + cx) * L::kLH + jg * 4;
+    float4 a[3], m[3];
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      a[dy] = ld4(h0 + dy * kRS);
+      m[dy] = ld4(h0 + dy * kRS + L::kLH);
+    }
+    float* dr = ds + (row * L::TW + cx) * L::kLD + jg * 4;
+#pragma unroll
+    for (int px = 0; px < L::kSW; ++px) {
+      float4 e[3];
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy)
+        e[dy] = ld4(h0 + dy * kRS + (px + 2) * L::kLH);
+      float4 sum = bias;
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        fma4(sum, a[dy], wt[3 * dy]);
+        fma4(sum, m[dy], wt[3 * dy + 1]);
+        fma4(sum, e[dy], wt[3 * dy + 2]);
+      }
+      st4(dr + px * L::kLD, relu6f4(sum));
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        a[dy] = m[dy];
+        m[dy] = e[dy];
+      }
+    }
+  }
+}
+
+// v ~ hi + lo for 3xTF32: hi is v rounded to TF32 (10 mantissa bits, the
+// magnitude rounded half away from zero, as cvt.rna.tf32.f32 does, in two
+// integer operations in place of a conversion); lo = v - hi, whose low 13
+// bits the tensor core drops
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// d += a (16x8, row) . b (8x8, col), TF32 in, f32 accumulate.  Lane l
+// holds a[0] at row l/4, column l%4, a[1] 8 rows below, a[2..3] 4 columns
+// right of a[0..1]; b0 at row l%4, column l/4, b1 4 rows below; d as for
+// mma16816 (PTX ISA, mma.m16n8k8 .tf32 fragment layout).  Not volatile:
+// the compiler may interleave independent tiles' products
+__device__ __forceinline__ void mma1688(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// C channels, a TH x TW output tile, the 2C hidden in chunks of KC.  kMode
+// 0: one tile per block, each chunk's weights streamed through two stages;
+// 1: every chunk's weights kept in shared memory, a persistent grid walks
+// the tiles.  kBlocks: blocks per SM the tile is sized for, of kT threads
+// each.  Both products on the tensor cores as
+// 3xTF32, each operand split into two TF32 parts as its fragment is loaded.
+// The expansion gives a warp 16 halo pixels x NG n8 tiles of the chunk; the
+// projection's accumulators are kFM x kFN (m16 x n8) tiles a warp, kWM x kWN
+// warps, as in TcTile.  Both epilogues run on the accumulator registers.
+template <int C_, int TH_, int TW_, int KC_, int kMode, int kBlocks_, int kT_,
+          int NG>
+struct Tile {
+  static constexpr int C = C_, TH = TH_, TW = TW_, KC = KC_;
+  static constexpr int kBlocks = kBlocks_, kT = kT_;
+  static constexpr bool kKeep = kMode == 1;
+  static constexpr int kHid = 2 * C;
+  static constexpr int kChunks = kHid / KC;
+  static constexpr int kStages = kKeep ? kChunks : 2;
+  static constexpr int kHW = TW + 2;
+  static constexpr int kHP = (TH + 2) * kHW;   // halo tile pixels
+  static constexpr int kHPp = round16(kHP);    // ... in m16 tiles
+  static constexpr int kTP = TH * TW;
+  // row strides (floats).  The input and the depthwise output, read as A
+  // fragments (row l/4, column l%4): 16 bytes past a multiple of 128.  W1,
+  // W2, read as B fragments (row l%4, column l/4), and the hidden, stored
+  // 8 bytes a lane from the accumulators: 32 bytes past.  Either way a
+  // warp's accesses fall in distinct banks
+  static constexpr int kLX = C + 4;
+  static constexpr int kLD = KC + 4;
+  static constexpr int kLW1 = KC + 8, kLW2 = C + 8, kLH = KC + 8;
+  // depthwise: a thread slides the 3x3 window over kSW pixels of one row
+  // for one channel quad
+  static constexpr int kJ4 = KC / 4;
+  static constexpr int kSeg = dw_segments(TH, TW, kJ4, kT);
+  static constexpr int kSW = TW / kSeg;
+  // per chunk: b1 (KC), b2 (KC), the 9 depthwise taps (9 x KC)
+  static constexpr int kVec = 11 * KC;
+  // shared memory carve-up, in bytes (128-aligned regions)
+  static constexpr size_t kXBytes = align128(4ull * kHPp * kLX);
+  static constexpr size_t kOffW1 = kXBytes;
+  static constexpr size_t kOffW2 = kOffW1 + align128(4ull * kStages * C * kLW1);
+  static constexpr size_t kOffH = kOffW2 + align128(4ull * kStages * KC * kLW2);
+  static constexpr size_t kOffD = kOffH + align128(4ull * kHP * kLH);
+  static constexpr size_t kOffV = kOffD + align128(4ull * kTP * kLD);
+  static constexpr size_t kOffB3 = kOffV + align128(4ull * kStages * kVec);
+  static constexpr size_t kBytes = kOffB3 + 4ull * C;
+
+  static_assert(C % 32 == 0 && KC % 8 == 0 && kHid % KC == 0, "chunks");
+  static_assert((kMode == 0 || kMode == 1) && kT % 32 == 0, "mode, warps");
+  // an SM has 228 KB of shared memory; each block leaves 1 KB reserved
+  static_assert(kBytes <= 232448 && kBlocks * (kBytes + 1024) <= 233472,
+                "shared memory for kBlocks blocks per SM");
+
+  static constexpr int kWarps = kT / 32;
+  static constexpr int kMT1 = kHPp / 16, kNT1 = KC / 8;
+  static constexpr int kItems = kMT1 * (kNT1 / NG);
+  static constexpr int kMT3 = kTP / 16, kNT3 = C / 8;
+  static constexpr int kWM = warps_m(kMT3, kNT3, kWarps);
+  static constexpr int kWN = kWarps / (kWM ? kWM : 1);
+  static constexpr int kFM = kMT3 / (kWM ? kWM : 1), kFN = kNT3 / kWN;
+  static_assert(kNT1 % NG == 0, "expansion tiles");
+  static_assert(kTP % 16 == 0 && kWM > 0, "accumulator split");
+
+  struct Acc {
+    float v[kFM][kFN][4];
+  };
+
+  static __device__ __forceinline__ void clear(Acc& acc) {
+#pragma unroll
+    for (int i = 0; i < kFM; ++i)
+#pragma unroll
+      for (int j = 0; j < kFN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc.v[i][j][e] = 0.f;
+  }
+
+  // a's fragment at p (row l/4, column l%4 of a row-major tile, row
+  // stride ld), split
+  static __device__ __forceinline__ void load_a(uint32_t (&ah)[4],
+                                                uint32_t (&al)[4],
+                                                const float* p, int ld) {
+    split_tf32(p[0], ah[0], al[0]);
+    split_tf32(p[8 * ld], ah[1], al[1]);
+    split_tf32(p[4], ah[2], al[2]);
+    split_tf32(p[8 * ld + 4], ah[3], al[3]);
+  }
+  // b's fragment at p (row l%4, column l/4 of a row-major k x n tile)
+  static __device__ __forceinline__ void load_b(uint32_t (&bh)[2],
+                                                uint32_t (&bl)[2],
+                                                const float* p, int ld) {
+    split_tf32(p[0], bh[0], bl[0]);
+    split_tf32(p[4 * ld], bh[1], bl[1]);
+  }
+
+  // h = relu6(xs . W1 + b1) on the halo tile, zero outside the image,
+  // stored from the accumulator registers
+  static __device__ __forceinline__ void expand(const float* xt,
+                                                const float* w1c,
+                                                const float* b1c, float* hs,
+                                                int y0, int x0, int H, int W) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    for (int it = warp; it < kItems; it += kWarps) {
+      const int mt = it % kMT1, n0 = (it / kMT1) * NG * 8;
+      float h[NG][4];
+#pragma unroll
+      for (int j = 0; j < NG; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) h[j][e] = 0.f;
+      const float* ap = xt + (mt * 16 + g) * kLX + t4;
+      const float* bp = w1c + t4 * kLW1 + n0 + g;
+#pragma unroll 2
+      for (int k = 0; k < C; k += 8) {
+        uint32_t ah[4], al[4], bh[NG][2], bl[NG][2];
+        load_a(ah, al, ap + k, kLX);
+#pragma unroll
+        for (int j = 0; j < NG; ++j)
+          load_b(bh[j], bl[j], bp + k * kLW1 + j * 8, kLW1);
+        // 3xTF32: the two cross terms, then hi . hi, each across the tiles
+#pragma unroll
+        for (int j = 0; j < NG; ++j) mma1688(h[j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+        for (int j = 0; j < NG; ++j) mma1688(h[j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+        for (int j = 0; j < NG; ++j) mma1688(h[j], ah, bh[j][0], bh[j][1]);
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int q = mt * 16 + g + half * 8;
+        if (q >= kHP) continue;
+        const int gy = y0 - 1 + q / kHW, gx = x0 - 1 + q % kHW;
+        const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+#pragma unroll
+        for (int j = 0; j < NG; ++j) {
+          const int ch = n0 + j * 8 + 2 * t4;
+          const float2 bb = ld2(b1c + ch);
+          st2(hs + q * kLH + ch,
+              inside ? make_float2(relu6f(h[j][2 * half] + bb.x),
+                                   relu6f(h[j][2 * half + 1] + bb.y))
+                     : make_float2(0.f, 0.f));
+        }
+      }
+    }
+  }
+
+  // acc += ds . W2 (this chunk's rows)
+  static __device__ __forceinline__ void project(const float* ds,
+                                                 const float* w2c, Acc& acc) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const int wm = warp % kWM, wn = warp / kWM;
+#pragma unroll
+    for (int kk = 0; kk < KC; kk += 8) {
+      uint32_t ah[kFM][4], al[kFM][4];
+#pragma unroll
+      for (int i = 0; i < kFM; ++i)
+        load_a(ah[i], al[i],
+               ds + ((wm * kFM + i) * 16 + g) * kLD + kk + t4, kLD);
+      uint32_t bh[kFN][2], bl[kFN][2];
+#pragma unroll
+      for (int j = 0; j < kFN; ++j)
+        load_b(bh[j], bl[j],
+               w2c + (kk + t4) * kLW2 + (wn * kFN + j) * 8 + g, kLW2);
+#pragma unroll
+      for (int i = 0; i < kFM; ++i)
+#pragma unroll
+        for (int j = 0; j < kFN; ++j)
+          mma1688(acc.v[i][j], al[i], bh[j][0], bh[j][1]);
+#pragma unroll
+      for (int i = 0; i < kFM; ++i)
+#pragma unroll
+        for (int j = 0; j < kFN; ++j)
+          mma1688(acc.v[i][j], ah[i], bl[j][0], bl[j][1]);
+#pragma unroll
+      for (int i = 0; i < kFM; ++i)
+#pragma unroll
+        for (int j = 0; j < kFN; ++j)
+          mma1688(acc.v[i][j], ah[i], bh[j][0], bh[j][1]);
+    }
+  }
+
+  // y = v + acc + b3 from the accumulator registers, 8-byte stores
+  static __device__ __forceinline__ void store(const Acc& acc,
+                                               const float* xt,
+                                               const float* b3s, float* y,
+                                               int y0, int x0, int H, int W) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const int wm = warp % kWM, wn = warp / kWM;
+#pragma unroll
+    for (int i = 0; i < kFM; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int p = (wm * kFM + i) * 16 + g + half * 8;
+        const int py = p / TW, px = p - py * TW;
+        const int gy = y0 + py, gx = x0 + px;
+        if (gy >= H || gx >= W) continue;
+        const float* vr = xt + ((py + 1) * kHW + px + 1) * kLX;
+        float* yr = y + ((size_t)gy * W + gx) * C;
+#pragma unroll
+        for (int j = 0; j < kFN; ++j) {
+          const int c = (wn * kFN + j) * 8 + 2 * t4;
+          const float2 v = ld2(vr + c), b = ld2(b3s + c);
+          st2(yr + c, make_float2(v.x + acc.v[i][j][2 * half] + b.x,
+                                  v.y + acc.v[i][j][2 * half + 1] + b.y));
+        }
+      }
+  }
+};
+
+
+template <class L>
+__global__ void __launch_bounds__(L::kT, L::kBlocks)
 ir_block_kernel(const float* __restrict__ x, const float* __restrict__ x1u,
                 float* __restrict__ y, const float* __restrict__ w1,
                 const float* __restrict__ b1, const float* __restrict__ wd,
                 const float* __restrict__ b2, const float* __restrict__ w2,
                 const float* __restrict__ b3, int H, int W, int tiles_w,
                 int tiles_img, int n_tiles) {
-  using L = Tile<C, TH, TW, KC, kMode, kBlocks, kT, PX, KS, RP>;
   constexpr bool kKeep = L::kKeep;
+  constexpr int C = L::C, KC = L::KC, TH = L::TH, TW = L::TW;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* xs = reinterpret_cast<float*>(smem_raw);
   float* w1s = reinterpret_cast<float*>(smem_raw + L::kOffW1);
@@ -690,110 +1006,31 @@ ir_block_kernel(const float* __restrict__ x, const float* __restrict__ x1u,
   float* ds = reinterpret_cast<float*>(smem_raw + L::kOffD);
   float* vs = reinterpret_cast<float*>(smem_raw + L::kOffV);
   float* b3s = reinterpret_cast<float*>(smem_raw + L::kOffB3);
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  // projection: this thread's channel group and pixel group
-  const int cgt = (warp % L::kWC) * L::kLC + lane % L::kLC;
-  const int pgt = (warp / L::kWC) * (32 / L::kLC) + lane / L::kLC;
-  // expansion: this lane's part of the sums and its item in the warp
-  const int ks = lane / L::kLanes, li = lane % L::kLanes;
-
-  // hidden chunk k into stage s: W1 columns, W2 rows, b1, b2, taps
-  auto load_chunk = [&](int k, int s) {
-    const int c0 = k * KC;
-    float* w1d = w1s + s * C * KC;
-    constexpr int kV1 = KC / 4;
-    for (int i = tid; i < C * kV1; i += kT) {
-      const int r = i / kV1, v = i - r * kV1;
-      cp16(w1d + r * KC + v * 4, w1 + (size_t)r * L::kHid + c0 + v * 4);
-    }
-    float* w2d = w2s + s * KC * C;
-    constexpr int kV2 = C / 4;
-    for (int i = tid; i < KC * kV2; i += kT)
-      cp16(w2d + i * 4, w2 + (size_t)c0 * C + i * 4);
-    float* vd = vs + s * L::kVec;
-    for (int i = tid; i < 11 * kV1; i += kT) {
-      const int r = i / kV1, v = i - r * kV1;
-      const float* src = r == 0   ? b1 + c0
-                         : r == 1 ? b2 + c0
-                                  : wd + (r - 2) * L::kHid + c0;
-      cp16(vd + r * KC + v * 4, src + v * 4);
-    }
-  };
-
-  constexpr int kCV = C / 4;  // 16-byte vectors per pixel
-  constexpr int kXE = L::kXBytes / 4;  // floats per input buffer
-  // the block input on the tile's halo into xt; zero outside the image and
-  // in the padding rows
-  auto load_input = [&](int tile, float* xt) {
-    const int n = tile / tiles_img, rem = tile - n * tiles_img;
-    const int y0 = (rem / tiles_w) * TH, x0 = (rem % tiles_w) * TW;
-    const size_t img = (size_t)n * H * W * C;
-    for (int i = tid; i < L::kHPp * kCV; i += kT) {
-      const int q = i / kCV, c = (i - q * kCV) * 4;
-      const int gy = y0 - 1 + q / L::kHW, gx = x0 - 1 + q % L::kHW;
-      const bool ok = q < L::kHP && gy >= 0 && gy < H && gx >= 0 && gx < W;
-      cp16(xt + q * L::kLX + c,
-           ok ? x + img + ((size_t)gy * W + gx) * C + c : x, ok ? 16 : 0);
-    }
-  };
-
-  for (int i = tid; i < C / 4; i += kT) cp16(b3s + i * 4, b3 + i * 4);
+  for (int i = threadIdx.x; i < C / 4; i += L::kT)
+    cp16(b3s + i * 4, b3 + i * 4);
   if constexpr (kKeep) {
-    for (int k = 0; k < L::kChunks; ++k) load_chunk(k, k);
+    for (int k = 0; k < L::kChunks; ++k)
+      load_chunk<L>(w1s, w2s, vs, w1, b1, wd, b2, w2, k, k);
   } else {
-    load_chunk(0, 0);
-  }
-  if constexpr (L::kXBufs == 2) {
-    if ((int)blockIdx.x < n_tiles) load_input(blockIdx.x, xs);
+    load_chunk<L>(w1s, w2s, vs, w1, b1, wd, b2, w2, 0, 0);
   }
   cp_commit();
 
-  int seq = 0;  // chunks computed: a streamed chunk's stage
-  int buf = 0;  // input buffer of this tile
-  for (int tile = blockIdx.x; tile < n_tiles;
-       tile += gridDim.x, buf ^= L::kXBufs - 1) {
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int n = tile / tiles_img, rem = tile - n * tiles_img;
     const int y0 = (rem / tiles_w) * TH, x0 = (rem % tiles_w) * TW;
     const size_t img = (size_t)n * H * W * C;
-    float* xt = xs + buf * kXE;
-    if constexpr (L::kXBufs == 1) {
-      load_input(tile, xt);
-      cp_commit();
-    }
+    load_input<L>(xs, x, n, y0, x0, H, W);
+    cp_commit();
     cp_wait_all();
-    // block 3 of the chain adds the mid-chain skip, on the elements each
-    // thread copied itself
-    if (x1u != nullptr) {
-      for (int i = tid; i < L::kHPp * kCV; i += kT) {
-        const int q = i / kCV, c = (i - q * kCV) * 4;
-        const int gy = y0 - 1 + q / L::kHW, gx = x0 - 1 + q % L::kHW;
-        if (!(q < L::kHP && gy >= 0 && gy < H && gx >= 0 && gx < W)) continue;
-        const float4 u = __ldg(reinterpret_cast<const float4*>(
-            x1u + img + ((size_t)gy * W + gx) * C + c));
-        float4 v = ld4(xt + q * L::kLX + c);
-        v.x += u.x; v.y += u.y; v.z += u.z; v.w += u.w;
-        st4(xt + q * L::kLX + c, v);
-      }
-    }
-    // the next tile's input lands while this one computes
-    if constexpr (L::kXBufs == 2) {
-      if (tile + (int)gridDim.x < n_tiles) {
-        load_input(tile + gridDim.x, xs + (buf ^ 1) * kXE);
-        cp_commit();
-      }
-    }
+    if (x1u != nullptr) add_skip<L>(xs, x1u, img, y0, x0, H, W);
 
-    float4 acc[RP][L::kRQ];
-#pragma unroll
-    for (int i = 0; i < RP; ++i)
-#pragma unroll
-      for (int r = 0; r < L::kRQ; ++r) acc[i][r] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-    for (int k = 0; k < L::kChunks; ++k, ++seq) {
-      const int s = kKeep ? k : (seq & 1);
-      const float* w1c = w1s + s * C * KC;
-      const float* w2c = w2s + s * KC * C;
+    typename L::Acc acc;
+    L::clear(acc);
+    for (int k = 0; k < L::kChunks; ++k) {
+      const int s = kKeep ? k : (k & 1);
+      const float* w1c = w1s + s * C * L::kLW1;
+      const float* w2c = w2s + s * KC * L::kLW2;
       const float* b1c = vs + s * L::kVec;
       const float* b2c = b1c + KC;
       const float* wdc = b2c + KC;
@@ -803,174 +1040,35 @@ ir_block_kernel(const float* __restrict__ x, const float* __restrict__ x1u,
       if (!kKeep || k == 0) __syncthreads();
       // the next chunk's weights land while this one computes: stage s ^ 1
       // was last read by the chunk before, which every thread has finished
-      if constexpr (!kKeep) {
-        if (k + 1 < L::kChunks)
-          load_chunk(k + 1, s ^ 1);
-        else if (tile + (int)gridDim.x < n_tiles)
-          load_chunk(0, s ^ 1);
+      if (!kKeep && k + 1 < L::kChunks) {
+        load_chunk<L>(w1s, w2s, vs, w1, b1, wd, b2, w2, k + 1, s ^ 1);
         cp_commit();
       }
-
-      // 1. expansion h = relu6(b1 + xs . W1), k ascending, zero outside the
-      //    image; PX pixels x 4 channels a thread from 16-byte loads along k
-      for (int ib = warp * L::kLanes; ib < L::kItems; ib += kT / KS) {
-        const int it = ib + li < L::kItems ? ib + li : ib;
-        const int jg = it % L::kJ4, pq = it / L::kJ4;
-        float4 a[PX];
-        const float4 bias = ks == 0 ? ld4(b1c + jg * 4)
-                                    : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-        for (int i = 0; i < PX; ++i) a[i] = bias;
-        const float* xr = xt + pq * L::kLX + ks * L::kKL;
-        const float* wr = w1c + ks * L::kKL * KC + jg * 4;
-#pragma unroll 2
-        for (int kk = 0; kk < L::kKL; kk += 4) {
-          float4 xv[PX];
-#pragma unroll
-          for (int i = 0; i < PX; ++i) xv[i] = ld4(xr + i * L::kNQ * L::kLX + kk);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float4 wv = ld4(wr + (kk + e) * KC);
-#pragma unroll
-            for (int i = 0; i < PX; ++i) {
-              const float xe = comp(xv[i], e);
-              a[i].x = fmaf(xe, wv.x, a[i].x);
-              a[i].y = fmaf(xe, wv.y, a[i].y);
-              a[i].z = fmaf(xe, wv.z, a[i].z);
-              a[i].w = fmaf(xe, wv.w, a[i].w);
-            }
-          }
-        }
-        if constexpr (KS > 1) {
-#pragma unroll
-          for (int o = L::kLanes; o < 32; o *= 2)
-#pragma unroll
-            for (int i = 0; i < PX; ++i) {
-              a[i].x += __shfl_xor_sync(0xffffffffu, a[i].x, o);
-              a[i].y += __shfl_xor_sync(0xffffffffu, a[i].y, o);
-              a[i].z += __shfl_xor_sync(0xffffffffu, a[i].z, o);
-              a[i].w += __shfl_xor_sync(0xffffffffu, a[i].w, o);
-            }
-        }
-        if (ib + li < L::kItems) {
-#pragma unroll
-          for (int i = 0; i < PX; ++i) {
-            const int q = pq + i * L::kNQ;
-            if (i % KS != ks || q >= L::kHP) continue;  // one lane stores
-            const int gy = y0 - 1 + q / L::kHW, gx = x0 - 1 + q % L::kHW;
-            const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-            st4(hs + q * L::kLH + jg * 4,
-                inside ? relu6f4(a[i]) : make_float4(0.f, 0.f, 0.f, 0.f));
-          }
-        }
-      }
+      // 1. expansion on the halo tile, 2. depthwise 3x3 on the output tile,
+      // 3. projection of this chunk into the register accumulators
+      L::expand(xs, w1c, b1c, hs, y0, x0, H, W);
       __syncthreads();
-
-      // 2. depthwise 3x3: s = b2, then the taps row by row, a window of 3
-      //    columns sliding along kSW pixels of one row, 4 channels a thread
-      for (int it = tid; it < TH * L::kSeg * L::kJ4; it += kT) {
-        constexpr int kRS = L::kHW * L::kLH;
-        const int jg = it % L::kJ4, rs = it / L::kJ4;
-        const int row = rs / L::kSeg, cx = (rs % L::kSeg) * L::kSW;
-        float4 wt[9];
-#pragma unroll
-        for (int t = 0; t < 9; ++t) wt[t] = ld4(wdc + t * KC + jg * 4);
-        const float4 bias = ld4(b2c + jg * 4);
-        const float* h0 = hs + (row * L::kHW + cx) * L::kLH + jg * 4;
-        float4 a[3], m[3];
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
-          a[dy] = ld4(h0 + dy * kRS);
-          m[dy] = ld4(h0 + dy * kRS + L::kLH);
-        }
-        float* dr = ds + (row * TW + cx) * L::kLD + jg * 4;
-#pragma unroll
-        for (int px = 0; px < L::kSW; ++px) {
-          float4 e[3];
-#pragma unroll
-          for (int dy = 0; dy < 3; ++dy)
-            e[dy] = ld4(h0 + dy * kRS + (px + 2) * L::kLH);
-          float4 sum = bias;
-#pragma unroll
-          for (int dy = 0; dy < 3; ++dy) {
-            fma4(sum, a[dy], wt[3 * dy]);
-            fma4(sum, m[dy], wt[3 * dy + 1]);
-            fma4(sum, e[dy], wt[3 * dy + 2]);
-          }
-          st4(dr + px * L::kLD, relu6f4(sum));
-#pragma unroll
-          for (int dy = 0; dy < 3; ++dy) {
-            a[dy] = m[dy];
-            m[dy] = e[dy];
-          }
-        }
-      }
+      depthwise<L>(hs, ds, b2c, wdc);
       __syncthreads();
-
-      // 3. projection acc += ds . W2 (this chunk's rows), k ascending
-#pragma unroll 2
-      for (int kk = 0; kk < KC; kk += 4) {
-        float4 dv[RP];
-#pragma unroll
-        for (int i = 0; i < RP; ++i)
-          dv[i] = ld4(ds + (pgt + i * L::kNPG) * L::kLD + kk);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float4 wv[L::kRQ];
-#pragma unroll
-          for (int r = 0; r < L::kRQ; ++r)
-            wv[r] = ld4(w2c + (kk + e) * C + (cgt + r * L::kNCG) * 4);
-#pragma unroll
-          for (int i = 0; i < RP; ++i) {
-            const float de = comp(dv[i], e);
-#pragma unroll
-            for (int r = 0; r < L::kRQ; ++r) {
-              acc[i][r].x = fmaf(de, wv[r].x, acc[i][r].x);
-              acc[i][r].y = fmaf(de, wv[r].y, acc[i][r].y);
-              acc[i][r].z = fmaf(de, wv[r].z, acc[i][r].z);
-              acc[i][r].w = fmaf(de, wv[r].w, acc[i][r].w);
-            }
-          }
-        }
-      }
+      L::project(ds, w2c, acc);
     }
-
-    // y = v + acc + b3 from the registers, 16-byte stores
-#pragma unroll
-    for (int i = 0; i < RP; ++i) {
-      const int p = pgt + i * L::kNPG;
-      const int py = p / TW, px = p - py * TW;
-      const int gy = y0 + py, gx = x0 + px;
-      if (gy >= H || gx >= W) continue;
-      const float* vr = xt + ((py + 1) * L::kHW + px + 1) * L::kLX;
-      float* yr = y + img + ((size_t)gy * W + gx) * C;
-#pragma unroll
-      for (int r = 0; r < L::kRQ; ++r) {
-        const int c = (cgt + r * L::kNCG) * 4;
-        const float4 v = ld4(vr + c), b = ld4(b3s + c);
-        st4(yr + c, make_float4(v.x + acc[i][r].x + b.x,
-                                v.y + acc[i][r].y + b.y,
-                                v.z + acc[i][r].z + b.z,
-                                v.w + acc[i][r].w + b.w));
-      }
-    }
-    __syncthreads();  // xt takes a later tile
+    L::store(acc, xs, b3s, y + img, y0, x0, H, W);
+    __syncthreads();  // xs takes a later tile
   }
 }
 
-template <int C, int TH, int TW, int KC, int kMode, int kBlocks, int kT,
-          int PX, int KS, int RP>
+template <class L>
 cudaError_t launch(const void* x, const void* x1u, void* y, const void* w1,
                    const void* b1, const void* wd, const void* b2,
                    const void* w2, const void* b3, int n, int h, int w,
                    cudaStream_t stream) {
-  using L = Tile<C, TH, TW, KC, kMode, kBlocks, kT, PX, KS, RP>;
-  auto kern = ir_block_kernel<C, TH, TW, KC, kMode, kBlocks, kT, PX, KS, RP>;
+  auto kern = ir_block_kernel<L>;
   static int resident = 0;  // blocks the card holds at once (kKeep)
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
   if (err != cudaSuccess) return err;
-  const int tiles_w = (w + TW - 1) / TW, tiles_h = (h + TH - 1) / TH;
+  const int tiles_w = (w + L::TW - 1) / L::TW;
+  const int tiles_h = (h + L::TH - 1) / L::TH;
   const int tiles_img = tiles_w * tiles_h, n_tiles = n * tiles_img;
   int grid = n_tiles;
   if (L::kKeep) {
@@ -981,14 +1079,14 @@ cudaError_t launch(const void* x, const void* x1u, void* y, const void* w1,
                &sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
         return err;
       if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-               &per_sm, kern, kT, L::kBytes)) != cudaSuccess)
+               &per_sm, kern, L::kT, L::kBytes)) != cudaSuccess)
         return err;
       resident = sms * (per_sm > 0 ? per_sm : 1);
     }
     grid = n_tiles < resident ? n_tiles : resident;
   }
   if (grid == 0) return cudaSuccess;
-  kern<<<grid, kT, L::kBytes, stream>>>(
+  kern<<<grid, L::kT, L::kBytes, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(x1u),
       static_cast<float*>(y), static_cast<const float*>(w1),
       static_cast<const float*>(b1), static_cast<const float*>(wd),
@@ -997,20 +1095,20 @@ cudaError_t launch(const void* x, const void* x1u, void* y, const void* w1,
   return cudaGetLastError();
 }
 
-// Tiles of each width, <TH, TW, KC, kMode, kBlocks, threads, PX, KS, RP>:
-// the header says why, PERF.md holds the sets timed against them.  A
-// build may set IR_F32_<C> to time another set.
+// Tiles of each width, <C, TH, TW, KC, kMode, kBlocks, threads, NG>:
+// the header says why, PERF.md holds the sets timed against them.  A build
+// may set IR_F32_<C> to time another.
 #ifndef IR_F32_256
-#define IR_F32_256 8, 8, 16, 0, 1, 512, 4, 4, 4
+#define IR_F32_256 Tile<256, 8, 8, 16, 0, 1, 512, 2>
 #endif
 #ifndef IR_F32_128
-#define IR_F32_128 8, 16, 32, 0, 1, 512, 6, 2, 4
+#define IR_F32_128 Tile<128, 8, 16, 32, 0, 1, 512, 4>
 #endif
 #ifndef IR_F32_64
-#define IR_F32_64 16, 16, 32, 0, 1, 512, 6, 1, 4
+#define IR_F32_64 Tile<64, 16, 16, 32, 0, 1, 512, 4>
 #endif
 #ifndef IR_F32_32
-#define IR_F32_32 8, 16, 32, 1, 2, 256, 6, 1, 4
+#define IR_F32_32 Tile<32, 8, 16, 32, 1, 2, 256, 4>
 #endif
 
 cudaError_t dispatch(int c, const void* x, const void* x1u, void* y,
@@ -1018,10 +1116,10 @@ cudaError_t dispatch(int c, const void* x, const void* x1u, void* y,
                      const void* b2, const void* w2, const void* b3, int n,
                      int h, int w, cudaStream_t s) {
   switch (c) {
-    case 256: return launch<256, IR_F32_256>(x, x1u, y, w1, b1, wd, b2, w2, b3, n, h, w, s);
-    case 128: return launch<128, IR_F32_128>(x, x1u, y, w1, b1, wd, b2, w2, b3, n, h, w, s);
-    case 64: return launch<64, IR_F32_64>(x, x1u, y, w1, b1, wd, b2, w2, b3, n, h, w, s);
-    case 32: return launch<32, IR_F32_32>(x, x1u, y, w1, b1, wd, b2, w2, b3, n, h, w, s);
+    case 256: return launch<IR_F32_256>(x, x1u, y, w1, b1, wd, b2, w2, b3, n, h, w, s);
+    case 128: return launch<IR_F32_128>(x, x1u, y, w1, b1, wd, b2, w2, b3, n, h, w, s);
+    case 64: return launch<IR_F32_64>(x, x1u, y, w1, b1, wd, b2, w2, b3, n, h, w, s);
+    case 32: return launch<IR_F32_32>(x, x1u, y, w1, b1, wd, b2, w2, b3, n, h, w, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -15,10 +15,13 @@ WD (4, 3, 3, 2C), B2 (4, 2C), W2 (4, 2C, C), B3 (4, C).  x, x1u and y are
 NHWC ``(N, H, W, C)``.
 
 The kernel (``csrc/ir_chain.cu``) is one fused launch per block, four per
-chain; the 2C hidden never reaches device memory.  What bounds it and the
-design choice are in the source's header.  ``ir_chain`` takes the plain
-version only for tensors on the CPU; on a CUDA tensor it launches the
-kernel or raises.  ``ir_chain.launches`` counts kernel launches.
+chain; the 2C hidden never reaches device memory.  Both pointwise products
+run on the tensor cores: in bfloat16 as bf16 products, in float32 as
+3xTF32 (three TF32 products per float32 one, within ~1e-5 of max|y| of the
+float32 plain chain).  What bounds it and the design choice are in the
+source's header.  ``ir_chain`` takes the plain version only for tensors on
+the CPU; on a CUDA tensor it launches the kernel or raises.
+``ir_chain.launches`` counts kernel launches.
 """
 
 from __future__ import annotations

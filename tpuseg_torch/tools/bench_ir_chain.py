@@ -11,7 +11,8 @@ this checkout's and a parent's written out with ``git show
 (gitignored).  ``@PATCH`` edits the source text first (``PATCHES``: timed
 variants of a kernel whose results are allowed to be wrong); ``@NAME=VALUE``
 pairs are compiled in as ``#define`` lines, a value may hold commas (the
-float32 tile sets ``IR_F32_<C>``, e.g. ``@IR_F32_32=8,16,16,1,3,256,3,1,4``).
+float32 tile sets ``IR_F32_<C>``, e.g. ``"@IR_F32_32=Tile<32, 8, 16, 32,
+1, 2, 256, 4>"``).
 All builds compile at once, then every build runs the main path's five
 chain calls in ``--dtype`` (bfloat16, the default, or float32;
 ``chip_smoke.MAIN_SHAPES``, N = 128, the mid-chain skip on every level but
@@ -44,8 +45,26 @@ ROOT = Path(__file__).resolve().parents[2]
 # timed variants of the WMMA bf16 kernel of commit e37eaf2 (``git archive
 # e37eaf2``), to split its time by cause: (a) ``noweights``, each chunk's
 # weights loaded only for the first chunk; (b) ``nobias``, the separate
-# bias + relu6 + mask pass over ``hs`` gone
+# bias + relu6 + mask pass over ``hs`` gone.  Of this checkout's float32
+# (3xTF32) kernel: (c) ``nosplit``, the operands passed whole (lo = 0: the
+# splits cost nothing, the three products stay); (d) ``onemma``, only the
+# hi . hi product (the cross terms and their splits gone: single-pass
+# TF32's cost); (e) ``nodw``, the depthwise gone
+_CROSS_TERMS = re.compile(
+    r"#pragma unroll\n\s*for \(int j = 0; j < NG; \+\+j\) mma1688\(h\[j\], al,"
+    r".*?\n.*?\n\s*for \(int j = 0; j < NG; \+\+j\) mma1688\(h\[j\], ah, bl.*?\n")
+_CROSS_TERMS_3 = re.compile(
+    r"(#pragma unroll\n\s*for \(int i = 0; i < kFM; \+\+i\)\n#pragma unroll\n"
+    r"\s*for \(int j = 0; j < kFN; \+\+j\)\n\s*mma1688\(acc\.v\[i\]\[j\], "
+    r"a[lh]\[i\], b[hl]\[j\]\[0\], b[hl]\[j\]\[1\]\);\n){2}")
 PATCHES = {
+    "nosplit": [(
+        "  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;\n"
+        "  lo = __float_as_uint(v - __uint_as_float(hi));",
+        "  hi = __float_as_uint(v);\n  lo = 0u;"),
+    ],
+    "onemma": [(_CROSS_TERMS, ""), (_CROSS_TERMS_3, "")],
+    "nodw": [("      depthwise<L>(hs, ds, b2c, wdc);\n", "")],
     "noweights": [(
         re.compile(r"(    for \(int i = tid; i < C \* KC; i \+= kThreads\) \{\n"
                    r"      const int k = i / KC, j = i - k \* KC;\n"
@@ -115,9 +134,9 @@ def main(argv) -> int:
         MAIN_SHAPES, N_DECODE, chain_bound, cuda_ms, host_ms,
         kernel_device_ms, smi_line,
     )
-    from tpuseg_torch.kernels import ir_chain as wrapper
     from tpuseg_torch.cli.common import load_model
     from tpuseg_torch.kernels import build
+    from tpuseg_torch.kernels import ir_chain as wrapper
     from tpuseg_torch.kernels.ir_chain import ir_chain_plain, stack_chain_params
     from tpuseg_torch.settings import get_config
 
@@ -208,6 +227,10 @@ def main(argv) -> int:
 
         iters = max(3, min(50, int(2e8 // (N_DECODE * h * w * c))))
         b_ms, o_ms = chain_bound(N_DECODE, h, w, c, args.dtype, lvl > 0)
+        # float32: the bound with every product on the CUDA cores beside
+        core_ms = (max(chain_bound(N_DECODE, h, w, c, args.dtype, lvl > 0,
+                                   cuda_cores=True))
+                   if args.dtype == "float32" else None)
         ev = {label: [] for label in specs}
         for r in range(args.rounds):
             for label in (specs if r % 2 == 0 else specs[::-1]):
@@ -226,13 +249,16 @@ def main(argv) -> int:
             row = {"ms": statistics.median(ev[label]), "ms_rounds": ev[label],
                    "device_ms_per_launch": dev_ms,
                    "bound_ms": max(b_ms, o_ms),
+                   "bound_cuda_cores_ms": core_ms,
                    "rel_err": err / scale, "max_diff_first": diff}
             results[label][f"L{lvl}"] = row
             print(f"L{lvl} {[N_DECODE, h, w, c]} {args.dtype} {label}: "
                   f"{row['ms']:.3f} ms per chain (rounds "
                   f"{[round(v, 3) for v in ev[label]]}), device "
                   f"{dev_ms if dev_ms is None else round(dev_ms, 4)}"
-                  f" ms per launch, bound {row['bound_ms']:.4f} ms, "
+                  f" ms per launch, bound {row['bound_ms']:.4f} ms"
+                  + ("" if core_ms is None else f" (CUDA cores {core_ms:.4f})")
+                  + ", "
                   f"max|err|/max|y| {row['rel_err']:.3e}, max|diff| vs "
                   f"{specs[0]} {diff:.3e}", flush=True)
             del got
