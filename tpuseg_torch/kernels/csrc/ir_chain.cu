@@ -47,11 +47,11 @@
 // dispatch): 256: 8 x 8, 16, streamed, 1 x 512, 2 (the halo input alone
 // takes 116 KB); 128: 8 x 16, 32, streamed, 1 x 512, 4; 64: 16 x 16, 32,
 // streamed, 1 x 512, 4; 32: 8 x 16, 32, kept, 2 x 256, 4.  At most 128
-// registers, no spills.  Per launch on an H100 (700 W) the five main-path
-// levels take 0.46-1.82 ms, 13-20% of the 3xTF32 operations bound (37-52%
-// of the bound with every product on the CUDA cores); the operand splits,
-// the depthwise and the cross products cost 12%, 15% and 24% of a round
-// (timed variants, PERF.md).
+// registers; C = 256 spills 8 bytes, the others none.  Per launch on an
+// H100 (700 W) the five main-path levels take 0.46-1.82 ms, 13-20% of the
+// 3xTF32 operations bound (37-52% of the bound with every product on the
+// CUDA cores); the operand splits, the depthwise and the cross products
+// cost 12%, 15% and 24% of a round (timed variants, PERF.md).
 //
 // bfloat16 (ir_block_tc_kernel), the main path's type:
 // - both products on mma.sync.m16n8k16 (bf16 in, f32 accumulate), operands
