@@ -64,7 +64,27 @@ Builds the port's CUDA kernels (``ir_chain``, ``masked_softmax``,
    fixed random target, with the SRU launch counters reset just before and
    read just after: 6 forward and 6 backward calls per step (one launch
    each); prints ms per step with the GEMMs' and the scans' share
-   (``torch.profiler``).
+   (``torch.profiler``);
+10. drives the inference CLIs on the frozen ``assets/eval_hard64``:
+    ``tpuseg_torch.cli.pred_list`` over its 64 images with the committed
+    checkpoint, once with ``--f32`` (TF32 first put back to PyTorch's
+    defaults, so the CLI's own switch is what holds f32) and once in bf16,
+    20 ``ir_chain`` launches a round each, then ``cli.evaluate`` on the
+    card; f32 must give the JAX package's CPU counts on every image
+    (``assets/eval_hard64_jax_f32.json``), SBD within 2e-3 and FG dice
+    within 1e-4 of its means; bf16 SBD >= f32's - 0.01 and |DiC| <= f32's
+    + 0.1; prints both beside REPORT.md's TPU numbers and the CLI's wall
+    img/s;
+11. drives the training CLIs: synthetic records at 530x500 (24 training,
+    8 validation scenes), ``cli.train`` at the full CVPPP config, B=8,
+    bf16, for 2 epochs, then resumed from its best checkpoint for 1 (the
+    step count goes on), then 1 epoch with ``--device_aug``, with the
+    ``masked_softmax`` (1 forward launch per train and validation step,
+    ``BACKWARD_LAUNCHES`` per train step) and ``ir_chain`` (validation
+    decode) counters read around each run; prints steps/s with the loader
+    and the share of the train loop spent waiting on the loader; then
+    ``pred_list --model`` on the resumed run's checkpoint (its weights
+    must be the ones loaded) over 8 images and ``evaluate``.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises: the
@@ -1113,6 +1133,266 @@ def phase_sru_train(dev):
             "device_ms_per_step": breakdown, "launches": counts}
 
 
+# The JAX package's bf16 numbers on eval_hard64, taken on a TPU v5e
+# (REPORT.md: evaluate.py output); printed beside the port's, not a gate
+REPORT_TPU_BF16 = {"sbd": 0.8127, "abs_dic": 0.500, "fg_dice": 0.9997}
+A1 = ("data", "raw", "CVPPP", "CVPPP2017_LSC_training", "training", "A1")
+
+
+def _recording_predictors():
+    """Swap ``cli.pred_list``'s ``Predictor`` for a subclass that keeps each
+    instance, so a phase can read the rounds a CLI run took."""
+    from tpuseg_torch.cli import pred_list
+    from tpuseg_torch.runtime.predict import Predictor
+
+    made = []
+
+    class Recording(Predictor):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    pred_list.Predictor = Recording
+    return made
+
+
+def _per_image(pred_dir, names):
+    import hashlib
+
+    from PIL import Image
+
+    out = {}
+    for name in names:
+        base = os.path.join(pred_dir, name, name)
+        ins = np.ascontiguousarray(np.asarray(Image.open(base + "-ins_mask.png")))
+        out[name] = (int(np.load(base + "-n_objects.npy")),
+                     hashlib.sha256(ins.tobytes()).hexdigest())
+    return out
+
+
+def phase_cli_eval(root, smi):
+    """pred_list -> evaluate through the CLIs on the frozen eval_hard64,
+    f32 (held to the JAX package's CPU result) and bf16 (held to f32)."""
+    import torch
+
+    from tpuseg_torch.cli import evaluate, pred_list
+    from tpuseg_torch.data.eval_asset import (
+        default_asset_prefix, materialize_eval_tree,
+    )
+    from tpuseg_torch.kernels.ir_chain import ir_chain
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "assets", "eval_hard64_jax_f32.json")) as f:
+        ref = json.load(f)
+    want = {r["name"]: (r["count"], r["ins_mask_sha256"]) for r in ref["images"]}
+    lst = materialize_eval_tree(default_asset_prefix(), os.path.join(root, "gt"))
+    meta = os.path.dirname(lst)
+    with open(lst) as f:
+        names = [os.path.splitext(os.path.basename(p))[0]
+                 for p in f.read().splitlines() if p]
+    if len(names) != 64 or set(names) != set(want):
+        raise AssertionError(f"eval_hard64 materialized {len(names)} images")
+    # phase 2 turned TF32 off for the whole process: back to PyTorch's
+    # defaults, so the f32 gate below shows the CLI's own setting
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    made = _recording_predictors()
+    ckpt = os.path.join(here, "assets", "synthetic_ckpt.msgpack")
+    out = {}
+    for mode, flags in (("f32", ["--f32"]), ("bf16", [])):
+        pred_dir = os.path.join(root, "pred_" + mode)
+        ir_chain.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pred_list.main(["--lst", lst, "--model", ckpt, "--dataset", "CVPPP",
+                        "--batchsize", "16", "--output", pred_dir] + flags)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches, rounds = ir_chain.launches, made[-1].rounds_run
+        if launches == 0 or launches != 5 * 4 * rounds:
+            raise AssertionError(
+                f"cli-eval {mode}: ir_chain launches {launches} != 5 levels x"
+                f" 4 blocks x {rounds} rounds")
+        if not torch.backends.cudnn.allow_tf32:
+            raise AssertionError("pred_list left cuDNN's TF32 switch off")
+        sbd, dic, fg = evaluate.main(["--pred_dir", pred_dir, "--dataset",
+                                      "CVPPP", "--metadata", meta, "--img_dir",
+                                      os.path.join(root, "gt", *A1),
+                                      "--device", "cuda"])
+        got = _per_image(pred_dir, names)
+        out[mode] = {
+            "sbd": sbd, "abs_dic": dic, "fg_dice": fg,
+            "wall_img_per_s": len(names) / wall, "wall_s": wall,
+            "ir_chain_launches": launches, "rounds": rounds,
+            "counts_equal_jax_f32": sum(got[n][0] == want[n][0] for n in names),
+            "idmaps_equal_jax_f32": sum(got[n][1] == want[n][1] for n in names),
+        }
+        log(f"  cli-eval {mode}: SBD {sbd:.6f} |DiC| {dic:.4f} FG dice "
+            f"{fg:.6f}; counts equal to the JAX f32 reference on "
+            f"{out[mode]['counts_equal_jax_f32']}/64 images, id maps (sha256) "
+            f"on {out[mode]['idmaps_equal_jax_f32']}/64; {launches} ir_chain "
+            f"launches over {rounds} rounds; pred_list wall {wall:.2f} s = "
+            f"{len(names) / wall:.2f} img/s incl. weights and PNG writes "
+            f"[{smi}]")
+    f32, bf16 = out["f32"], out["bf16"]
+    log(f"  JAX package f32 on the CPU (assets/eval_hard64_jax_f32.json): "
+        f"SBD {ref['mean_sbd']:.6f} |DiC| {ref['mean_abs_dic']:.4f} FG dice "
+        f"{ref['mean_fg_dice']:.6f}; JAX package bf16 on a TPU v5e "
+        f"(REPORT.md): SBD {REPORT_TPU_BF16['sbd']} |DiC| "
+        f"{REPORT_TPU_BF16['abs_dic']} FG dice {REPORT_TPU_BF16['fg_dice']}")
+    if f32["counts_equal_jax_f32"] != 64:
+        raise AssertionError(
+            f"f32 counts equal the JAX reference on only "
+            f"{f32['counts_equal_jax_f32']}/64 images")
+    if not (abs(f32["sbd"] - ref["mean_sbd"]) <= 2e-3
+            and abs(f32["fg_dice"] - ref["mean_fg_dice"]) <= 1e-4):
+        raise AssertionError(
+            f"f32 SBD {f32['sbd']} / FG {f32['fg_dice']} against the JAX "
+            f"package's {ref['mean_sbd']} / {ref['mean_fg_dice']} (2e-3 / 1e-4)")
+    if not (bf16["sbd"] >= f32["sbd"] - 0.01
+            and bf16["abs_dic"] <= f32["abs_dic"] + 0.1):
+        raise AssertionError(
+            f"bf16 SBD {bf16['sbd']} |DiC| {bf16['abs_dic']} against f32 "
+            f"{f32['sbd']} / {f32['abs_dic']} (-0.01 / +0.1)")
+    return out, lst
+
+
+def phase_cli_train(root, lst, smi):
+    """records -> train CLI (2 epochs) -> resume -> --device_aug ->
+    pred_list --model <its checkpoint> -> evaluate, launches counted."""
+    import torch
+
+    from tpuseg_torch.cli import evaluate, pred_list, train
+    from tpuseg_torch.cli.common import load_model
+    from tpuseg_torch.data.synthetic import write_synthetic_records
+    from tpuseg_torch.kernels.ir_chain import ir_chain
+    from tpuseg_torch.kernels.masked_softmax import (
+        BACKWARD_LAUNCHES, FORWARD_LAUNCHES, masked_softmax,
+    )
+    from tpuseg_torch.runtime.checkpoint import read_model_state
+
+    # a CVPPP 2017 A1 image is 500 wide, 530 high
+    t0 = time.perf_counter()
+    write_synthetic_records(os.path.join(root, "train"), 24, seed=21,
+                            height=530, width=500)
+    write_synthetic_records(os.path.join(root, "val"), 8, seed=22, height=530,
+                            width=500)
+    log(f"  cli-train: wrote 24 + 8 synthetic records at 530x500 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    base = ["--dataset", "CVPPP", "--batchsize", "8", "--bf16",
+            "--train_data", os.path.join(root, "train"),
+            "--val_data", os.path.join(root, "val"),
+            "--runs_dir", os.path.join(root, "runs")]
+
+    def best_checkpoint(run_dir):
+        ckpts = [f for f in os.listdir(run_dir) if f.startswith("model_")]
+        if not ckpts:
+            raise AssertionError(f"no checkpoint in {run_dir}")
+        return os.path.join(run_dir, max(ckpts, key=lambda f: int(
+            f.split("_")[1])))
+
+    runs, step = {}, 0
+    for name, extra, epochs in (("train", [], 2), ("resume", None, 1),
+                                ("device_aug", ["--device_aug"], 1)):
+        if extra is None:
+            extra = ["--model", best_checkpoint(runs["train"]["run_dir"])]
+            step0 = torch.load(extra[1], map_location="cpu",
+                               weights_only=True)["step"]
+        else:
+            step0 = 0
+        masked_softmax.launches = 0
+        masked_softmax.forward_launches = 0
+        masked_softmax.backward_launches = 0
+        ir_chain.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = train.main(base + ["--nepochs", str(epochs)] + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        n_train = sum(e["steps"] for e in res["epochs"])
+        n_val = epochs  # 8 validation scenes: one batch of 8 an epoch
+        counts = {"forward": masked_softmax.forward_launches,
+                  "backward": masked_softmax.backward_launches,
+                  "ir_chain": ir_chain.launches}
+        if n_train != 3 * epochs or res["step"] != step0 + n_train:
+            raise AssertionError(
+                f"cli-train {name}: {n_train} steps, step {res['step']} from "
+                f"{step0}")
+        if (counts["forward"] != FORWARD_LAUNCHES * (n_train + n_val)
+                or counts["backward"] != BACKWARD_LAUNCHES * n_train):
+            raise AssertionError(
+                f"cli-train {name}: masked_softmax launches {counts} for "
+                f"{n_train} train + {n_val} validation steps")
+        if counts["ir_chain"] <= 0 or counts["ir_chain"] % 20:
+            raise AssertionError(
+                f"cli-train {name}: ir_chain launches {counts['ir_chain']} in "
+                f"the validation decode")
+        loop = sum(e["wall_s"] for e in res["epochs"])
+        wait = sum(e["loader_wait_s"] for e in res["epochs"])
+        first = sum(e["first_batch_wait_s"] for e in res["epochs"])
+        with open(os.path.join(res["run_dir"], "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        if not all(np.isfinite(v) for r in recs for v in r.values()
+                   if isinstance(v, float)):
+            raise AssertionError(f"cli-train {name}: non-finite metrics")
+        runs[name] = {
+            "run_dir": res["run_dir"], "step": res["step"], "wall_s": wall,
+            "train_steps": n_train, "train_loop_s": loop,
+            "steps_per_s_with_loader": n_train / loop,
+            "loader_wait_s": wait, "loader_wait_share": wait / loop,
+            "first_batch_wait_s": first,
+            "launches": counts,
+            "val_ins_dice_loss": recs[-1].get("ins_dice_loss"),
+        }
+        log(f"  cli-train {name}: {n_train} steps (step {step0} -> "
+            f"{res['step']}) + {n_val} validation batches in {wall:.1f} s; "
+            f"train loop {n_train / loop:.3f} steps/s with the loader, "
+            f"waiting on the PrefetchLoader {wait:.2f} s = "
+            f"{100 * wait / loop:.1f}% of it ({first:.2f} s for the epochs' "
+            f"first batches); masked_softmax forward "
+            f"{counts['forward']} backward {counts['backward']}, ir_chain "
+            f"{counts['ir_chain']} (validation decode) [{smi}]")
+
+    # serve the resumed run's checkpoint: pred_list loads its weights
+    ckpt = best_checkpoint(runs["resume"]["run_dir"])
+    loaded = []
+
+    def spy(cfg, path):
+        out = load_model(cfg, path)
+        loaded.append({k: v.detach().clone()
+                       for k, v in out[1].state_dict().items()})
+        return out
+
+    pred_list.load_model = spy
+    lst8 = os.path.join(root, "meta8", "validation_image_paths.txt")
+    os.makedirs(os.path.dirname(lst8))
+    with open(lst) as f:
+        head = f.read().splitlines()[:8]
+    with open(lst8, "w") as f:
+        f.write("\n".join(head) + "\n")
+    pred_dir = os.path.join(root, "pred_trained")
+    pred_list.main(["--lst", lst8, "--model", ckpt, "--dataset", "CVPPP",
+                    "--batchsize", "8", "--output", pred_dir])
+    pred_list.load_model = load_model
+    state = read_model_state(ckpt)
+    if not (len(loaded) == 1 and loaded[0].keys() == state.keys() and all(
+            torch.equal(loaded[0][k].cpu(), v) for k, v in state.items())):
+        raise AssertionError("pred_list did not load the trained checkpoint")
+    scores = evaluate.main(["--pred_dir", pred_dir, "--dataset", "CVPPP",
+                            "--metadata", os.path.dirname(lst),
+                            "--img_dir", os.path.dirname(head[0]),
+                            "--device", "cuda"])
+    if not np.isfinite(scores).all():
+        raise AssertionError(f"trained model's metrics {scores}")
+    log(f"  cli-train serve: pred_list --model {os.path.basename(ckpt)} "
+        f"loaded the checkpoint's {len(state)} tensors; 8 images: SBD "
+        f"{scores[0]:.4f} |DiC| {scores[1]:.4f} FG dice {scores[2]:.4f} "
+        "(9 bf16 steps from a random init)")
+    runs["served"] = {"sbd": scores[0], "abs_dic": scores[1],
+                      "fg_dice": scores[2]}
+    return runs
+
+
 def make_images(n, seed):
     from tpuseg_torch.data.synthetic import label_map, make_scene
 
@@ -1340,6 +1620,24 @@ def main() -> int:
     sru_train = phase_sru_train(dev)
     log(f"phase sru-train: {time.perf_counter() - t0:.1f} s")
 
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        # -- phase 11: pred_list -> evaluate through the CLIs, eval_hard64
+        t0 = time.perf_counter()
+        cli_eval, eval_lst = phase_cli_eval(os.path.join(work, "eval"), smi)
+        log(f"phase cli-eval: {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 12: records -> train CLI -> resume -> pred_list, evaluate
+        t0 = time.perf_counter()
+        cli_train = phase_cli_train(os.path.join(work, "train"), eval_lst,
+                                    smi)
+        log(f"phase cli-train: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
     summary = {
         "train": train, "train_f32": train_f32,
         "img_per_s_bf16": len(imgs) / dt_main,
@@ -1353,6 +1651,7 @@ def main() -> int:
         "count_agreement_bf16_f32": float(np.mean(counts_f32 == counts_bf16)),
         "e2e_f32_idmap_agreement": agree,
         "sru_stack": sru_stack, "sru_train": sru_train,
+        "cli_eval": cli_eval, "cli_train": cli_train,
         "seconds": time.perf_counter() - t_all,
     }
     log("summary " + json.dumps(summary))
@@ -1396,6 +1695,13 @@ def main() -> int:
         "f32_plain_ms_per_level": [r["plain_ms"] for r in f32_rows],
         "launches_f32_inference": f32_launches,
         "launches_f32_parity": f32_parity_launches,
+        # phases 11-12: the CLIs (pred_list on eval_hard64; the train
+        # CLI's validation decode over its three runs)
+        "launches_cli_eval": {m: cli_eval[m]["ir_chain_launches"]
+                              for m in ("f32", "bf16")},
+        "launches_cli_train_validation": sum(
+            cli_train[r]["launches"]["ir_chain"]
+            for r in ("train", "resume", "device_aug")),
     }, {
         "name": "masked_softmax",
         "route": "cuda",
@@ -1406,6 +1712,11 @@ def main() -> int:
         "launches": train["launches"]["total"],
         "launches_forward": train["launches"]["forward"],
         "launches_backward": train["launches"]["backward"],
+        # phase 12: the train CLI's three runs (forward + backward)
+        "launches_cli_train": sum(
+            cli_train[r]["launches"]["forward"]
+            + cli_train[r]["launches"]["backward"]
+            for r in ("train", "resume", "device_aug")),
         "checked": True,
         "max_abs_err": sm_p_err,
         "max_rel_err_backward": sm_de_rel,

@@ -44,6 +44,12 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     # and the SRU slice's
     for name in ("nn.sru", "kernels.sru_scan"):
         assert f"tpuseg_torch.{name}" in res["imported"], name
+    # and the root-CLI slice's: records, the data pipeline, the CLIs
+    for name in ("data.records", "data.eval_asset", "data.dataset",
+                 "data.loader", "data.augment", "data.device_aug",
+                 "data.scripts.prepare", "cli.evaluate", "cli.train",
+                 "settings"):
+        assert f"tpuseg_torch.{name}" in res["imported"], name
     assert res["bad"] == []
 
 
@@ -69,6 +75,13 @@ def test_entry_points_default_to_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         create_train_state(cvppp_config(), _Unused())
+    # the root CLIs of the slice that reads records and scores predictions
+    from tpuseg_torch.cli import evaluate, train
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate.main(["--pred_dir", "unused", "--dataset", "CVPPP"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--dataset", "CVPPP"])
 
 
 def test_kernel_wrappers_do_not_fall_back_off_the_cpu():

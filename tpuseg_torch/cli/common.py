@@ -9,7 +9,10 @@ import torch
 
 from tpuseg_torch.configs import Config
 from tpuseg_torch.models import ReSeg
-from tpuseg_torch.utils.checkpoint_io import adapt_cfg_to_checkpoint
+from tpuseg_torch.runtime.checkpoint import read_model_state
+from tpuseg_torch.utils.checkpoint_io import (
+    adapt_cfg_to_checkpoint, adapt_cfg_to_heads,
+)
 from tpuseg_torch.weights import load_checkpoint
 
 # matplotlib's "Spectral" colormap: 11 control colours, 256-entry table
@@ -30,17 +33,26 @@ _LUT_N = 256
 
 
 def load_model(cfg: Config, model_path: str):
-    """(cfg adapted to the checkpoint, float32 ``ReSeg``).  A ``.msgpack``
-    checkpoint is loaded strictly; any other path gives a seeded random
-    init, as the JAX CLI's does."""
+    """(cfg adapted to the checkpoint, float32 ``ReSeg``), the weights
+    loaded strictly from a flax ``.msgpack`` file or from a train state
+    ``runtime/checkpoint.save_checkpoint`` wrote.  A path that does not
+    exist gives a seeded random init, as the JAX CLI's does; any other file
+    raises ``ValueError``."""
+    if not os.path.exists(model_path):
+        print(f"  [load] no checkpoint at {model_path!r} — random init "
+              "(seed 0)")
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            return cfg, ReSeg(cfg)
+    print(f"Loading model from {model_path}")
     if model_path.endswith(".msgpack") and os.path.isfile(model_path):
         cfg = adapt_cfg_to_checkpoint(cfg, model_path)
-        print(f"Loading model from {model_path}")
         return cfg, load_checkpoint(ReSeg(cfg), model_path)
-    print(f"  [load] no checkpoint at {model_path!r} — random init (seed 0)")
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(0)
-        return cfg, ReSeg(cfg)
+    state = read_model_state(model_path)
+    cfg = adapt_cfg_to_heads(cfg, {k.split(".")[0] for k in state})
+    model = ReSeg(cfg)
+    model.load_state_dict(state)
+    return cfg, model
 
 
 def spectral_colors(n: int) -> np.ndarray:

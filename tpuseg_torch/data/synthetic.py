@@ -3,14 +3,19 @@
 
 Randomly placed and rotated ellipse "leaves" around a rosette centre with
 exact per-instance masks, so a run on the card has inputs with ground
-truth and needs no image files and no PIL.
+truth and needs no image files.  The two writers (packed records, and the
+ground-truth tree ``evaluate`` reads) import Pillow when called.
 """
 
 from __future__ import annotations
 
+import io
+import os
 from typing import Tuple
 
 import numpy as np
+
+from tpuseg_torch.data.records import RecordWriter
 
 
 def make_scene(
@@ -109,3 +114,52 @@ def make_batch(rng: np.random.Generator, batch_size: int, height: int = 256,
         n_objects[i] = n
     return {"images": images, "sem_onehot": sem, "ins_masks": ins,
             "n_objects": n_objects}
+
+
+def write_synthetic_records(prefix: str, n_samples: int, seed: int = 0,
+                            height: int = 256, width: int = 256,
+                            **scene_kw) -> None:
+    """``n_samples`` scenes as a packed-record dataset at ``prefix``."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    w = RecordWriter(prefix)
+    for _ in range(n_samples):
+        rgb, sem, ins, n = make_scene(rng, height, width, **scene_kw)
+        buf = io.BytesIO()
+        Image.fromarray(rgb).save(buf, format="PNG")
+        w.add(buf.getvalue(), sem, ins, n)
+    w.close()
+
+
+def write_synthetic_eval_tree(root: str, n_samples: int, seed: int = 0,
+                              height: int = 256, width: int = 256,
+                              **scene_kw) -> str:
+    """The ground-truth layout ``cli/evaluate.py`` reads: under ``root``,
+    ``data/metadata/CVPPP/{validation_image_paths,number_of_instances}.txt``
+    and the A1 directory of ``plantNNNN_{rgb,label,fg}.png``.  Returns the
+    list file's path."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    img_dir = os.path.join(root, "data", "raw", "CVPPP",
+                           "CVPPP2017_LSC_training", "training", "A1")
+    meta = os.path.join(root, "data", "metadata", "CVPPP")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(meta, exist_ok=True)
+    paths, counts = [], []
+    for i in range(n_samples):
+        rgb, sem, ins, n = make_scene(rng, height, width, **scene_kw)
+        name = f"plant{i:04d}"
+        Image.fromarray(rgb).save(os.path.join(img_dir, name + "_rgb.png"))
+        Image.fromarray(label_map(ins)).save(
+            os.path.join(img_dir, name + "_label.png"))
+        Image.fromarray(sem).save(os.path.join(img_dir, name + "_fg.png"))
+        paths.append(os.path.join(img_dir, name + "_rgb.png"))
+        counts.append((name, n))
+    lst = os.path.join(meta, "validation_image_paths.txt")
+    with open(lst, "w") as f:
+        f.write("\n".join(paths) + "\n")
+    with open(os.path.join(meta, "number_of_instances.txt"), "w") as f:
+        f.write("\n".join(f"{n},{c}" for n, c in counts) + "\n")
+    return lst

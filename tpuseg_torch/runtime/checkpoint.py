@@ -8,6 +8,7 @@ continues the schedule instead of restarting it.
 from __future__ import annotations
 
 import os
+import zipfile
 from typing import Any, Dict, Optional
 
 import torch
@@ -34,3 +35,17 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     payload.pop("metadata", None)
     state.load_state_dict(payload)
     return state
+
+
+def read_model_state(path: str) -> Dict[str, torch.Tensor]:
+    """The model ``state_dict`` (on the CPU) of a file ``save_checkpoint``
+    wrote; raises ``ValueError`` for any other file."""
+    keys = {"step", "model", "optimizer", "plateau"}
+    payload = None
+    if zipfile.is_zipfile(path):
+        payload = torch.load(os.path.abspath(path), map_location="cpu",
+                             weights_only=True)
+    if not (isinstance(payload, dict) and keys <= payload.keys()):
+        raise ValueError(f"{path} is not a checkpoint written by "
+                         "tpuseg_torch.runtime.checkpoint.save_checkpoint")
+    return payload["model"]

@@ -15,6 +15,7 @@ are later slices of the port.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
@@ -23,6 +24,20 @@ import torch
 from tpuseg_torch import resolve_device
 from tpuseg_torch.configs import Config
 from tpuseg_torch.data.colorspace import image_ex_standardize
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """cuDNN convolutions and CUDA matmuls in full float32 inside the block
+    (PyTorch lets cuDNN use TF32 by default); the previous settings are
+    restored after it."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    before = (cudnn.allow_tf32, matmul.allow_tf32)
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = before
 
 
 def pack_masks(fg: torch.Tensor, idmap: torch.Tensor) -> torch.Tensor:
@@ -50,7 +65,8 @@ class Predictor:
         sync_rounds: bool = True,
     ):
         """``model``: a ``ReSeg`` with its weights loaded (float32).
-        ``sync_rounds``: end extraction after the first round that leaves
+        ``dtype=torch.float32`` runs every call with TF32 off
+        (:func:`tf32_off`).  ``sync_rounds``: end extraction after the first round that leaves
         every sample done (one host sync per round) instead of always
         running ceil(max_instances / extract_group) rounds."""
         self.device = resolve_device(device)
@@ -72,6 +88,11 @@ class Predictor:
 
     @torch.no_grad()
     def _infer_full(self, images_u8: torch.Tensor):
+        strict = self.dtype == torch.float32
+        with tf32_off() if strict else contextlib.nullcontext():
+            return self._infer(images_u8)
+
+    def _infer(self, images_u8: torch.Tensor):
         x = image_ex_standardize(images_u8).permute(0, 3, 1, 2)
         x = x.contiguous(memory_format=torch.channels_last)
         sem_probs, sem_mask, budget, score, partials = self.model.infer_prep(

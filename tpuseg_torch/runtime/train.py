@@ -23,6 +23,7 @@ import torch
 
 from tpuseg_torch.configs import Config
 from tpuseg_torch.data.colorspace import image_ex_standardize
+from tpuseg_torch.data.device_aug import device_augment
 from tpuseg_torch.losses.dice import dice_loss
 from tpuseg_torch.losses.focal import softmax_cross_entropy
 from tpuseg_torch.runtime.state import TrainState, global_norm
@@ -36,19 +37,26 @@ def prepare_images(images: torch.Tensor) -> torch.Tensor:
     return images
 
 
-def model_inputs(batch: Dict, device) -> Tuple[torch.Tensor, ...]:
-    """A batch dict -> the model's NCHW tensors on ``device``: (images
-    (B, 21, H, W) channels_last, sem_onehot (B, C, H, W), ins_masks
-    (B, N, H, W) contiguous float32, n_objects (B,) int64)."""
+def upload(batch: Dict, device) -> Dict[str, torch.Tensor]:
+    """A batch dict's four arrays as tensors on ``device`` (NHWC kept)."""
     def dev(v):
         t = v if torch.is_tensor(v) else torch.from_numpy(np.ascontiguousarray(v))
         return t.to(device, non_blocking=True)
 
-    images = prepare_images(dev(batch["images"])).float().permute(0, 3, 1, 2)
+    return {k: dev(batch[k])
+            for k in ("images", "sem_onehot", "ins_masks", "n_objects")}
+
+
+def model_inputs(batch: Dict, device) -> Tuple[torch.Tensor, ...]:
+    """A batch dict -> the model's NCHW tensors on ``device``: (images
+    (B, 21, H, W) channels_last, sem_onehot (B, C, H, W), ins_masks
+    (B, N, H, W) contiguous float32, n_objects (B,) int64)."""
+    b = upload(batch, device)
+    images = prepare_images(b["images"]).float().permute(0, 3, 1, 2)
     images = images.contiguous(memory_format=torch.channels_last)
-    sem = dev(batch["sem_onehot"]).float().permute(0, 3, 1, 2)
-    ins = dev(batch["ins_masks"]).float().permute(0, 3, 1, 2).contiguous()
-    return images, sem, ins, dev(batch["n_objects"]).long()
+    sem = b["sem_onehot"].float().permute(0, 3, 1, 2)
+    ins = b["ins_masks"].float().permute(0, 3, 1, 2).contiguous()
+    return images, sem, ins, b["n_objects"].long()
 
 
 def total_cost(cfg: Config, sem_logits, sem_onehot, dec_losses, train: bool,
@@ -135,15 +143,18 @@ def make_train_step(cfg: Config, model, train_cnn: bool = True,
     run once per step and feed every glimpse; their BatchNorm statistics
     take the one update as ``max_iter`` identical ones (exact at
     ``drop_rate`` 0), which is what the JAX package's two-apply step ends
-    with."""
-    if device_aug:
-        raise NotImplementedError(
-            "device_aug: the on-device augmentation (data/device_aug.py) "
-            "comes with the train-CLI slice of the port")
+    with.
+
+    ``device_aug``: the uploaded batch is augmented on the device
+    (``data/device_aug.py``, draws from ``generator``) before the
+    forward."""
 
     def train_step(state: TrainState, batch, generator):
         if state.model is not model:
             raise ValueError("train_step: the state holds another model")
+        if device_aug:
+            batch = device_augment(upload(batch, state.device), generator,
+                                   cfg.data)
         model.train()
         model.zero_grad(set_to_none=True)
         cost, metrics = _forward(cfg, model, batch, state.device, dtype,

@@ -7,8 +7,9 @@ msgpack ``(shape, dtype_name, raw_bytes)`` triple; ext type 3 (numpy
 scalar, ``(dtype_name, raw_bytes)``) is read too.  Returns the same tree
 of numpy arrays that ``flax.serialization.msgpack_restore`` does.
 
-Also the two CLI helpers the inference path needs from
-``tpuseg/cli/common.py``: ``adapt_cfg_to_checkpoint`` and
+Also the CLI helpers the inference path needs from
+``tpuseg/cli/common.py``: ``adapt_cfg_to_checkpoint`` (over
+``adapt_cfg_to_heads``, which the port's own checkpoints use too) and
 ``load_stop_params``.
 """
 
@@ -127,9 +128,26 @@ def read_msgpack(path_or_bytes) -> Any:
     return out
 
 
+def adapt_cfg_to_heads(cfg: Config, modules) -> Config:
+    """Disable the count/density heads that are not among ``modules``, the
+    top-level module names a checkpoint holds weights for (a fresh head
+    would cap extraction with an arbitrary budget)."""
+    updates = {}
+    if cfg.model.use_count_head and "count_head" not in modules:
+        print("  [load] checkpoint has no count_head — head disabled")
+        updates["use_count_head"] = False
+    if cfg.model.use_density_head and "density_head" not in modules:
+        print("  [load] checkpoint has no density_head — head disabled")
+        updates["use_density_head"] = False
+    if updates:
+        return dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, **updates)
+        )
+    return cfg
+
+
 def adapt_cfg_to_checkpoint(cfg: Config, model_path: str) -> Config:
-    """Disable the count/density heads a checkpoint never trained (a
-    fresh head would cap extraction with an arbitrary budget)."""
+    """``adapt_cfg_to_heads`` for a flax msgpack checkpoint."""
     if not (
         (cfg.model.use_count_head or cfg.model.use_density_head)
         and model_path
@@ -138,18 +156,7 @@ def adapt_cfg_to_checkpoint(cfg: Config, model_path: str) -> Config:
         return cfg
     stored = read_msgpack(model_path)
     params = stored.get("params", {}) if isinstance(stored, dict) else {}
-    updates = {}
-    if cfg.model.use_count_head and "count_head" not in params:
-        print("  [load] checkpoint has no count_head — head disabled")
-        updates["use_count_head"] = False
-    if cfg.model.use_density_head and "density_head" not in params:
-        print("  [load] checkpoint has no density_head — head disabled")
-        updates["use_density_head"] = False
-    if updates:
-        return dataclasses.replace(
-            cfg, model=dataclasses.replace(cfg.model, **updates)
-        )
-    return cfg
+    return adapt_cfg_to_heads(cfg, params)
 
 
 def default_stop_params_path() -> str:
