@@ -80,8 +80,8 @@ def jax_f32_reference(root: str, n_images: int = 64) -> dict:
     if n_images < 64:
         lst = _lst_head(lst, n_images, os.path.join(root, "meta"))
     pred_dir = os.path.join(root, "pred")
-    jpred.main(["--lst", lst, "--model", CKPT, "--dataset", "CVPPP", "--batchsize", str(BATCH), "--f32",
-                "--output", pred_dir])
+    jpred.main(["--lst", lst, "--model", CKPT, "--dataset", "CVPPP",
+                "--batchsize", str(BATCH), "--f32", "--output", pred_dir])
     sbd, dic, fg = jeval.main(["--pred_dir", pred_dir, "--dataset", "CVPPP",
                                "--metadata", meta,
                                "--img_dir", os.path.join(tree, *A1)])

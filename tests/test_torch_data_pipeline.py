@@ -19,7 +19,6 @@ from tpuseg.configs import cvppp_config as jax_cvppp_config
 from tpuseg.data import augment as JA
 from tpuseg.data import dataset as jds
 from tpuseg.data import loader as jld
-from tpuseg.data import records as jrec
 from tpuseg.data.scripts import prepare as jprep
 from tpuseg.data.synthetic import write_synthetic_eval_tree, write_synthetic_records
 from tpuseg_torch.configs import cvppp_config

@@ -58,16 +58,16 @@ def _load_records(pred_dir: str, meta: str, img_dir: str):
     names = [os.path.splitext(os.path.basename(n))[0] for n in names]
     n_objects_gts = np.loadtxt(os.path.join(meta, "number_of_instances.txt"),
                                dtype="str", delimiter=",", ndmin=2)
+
+    def png(path):
+        return np.array(Image.open(path))
+
     records = []
     for name in names:
         base = f"{pred_dir}/{name}/{name}"
         if not os.path.isfile(base + "-n_objects.npy"):
             continue
         key = name.replace("_rgb", "")
-
-        def png(path):
-            return np.array(Image.open(path))
-
         records.append({
             "ins_gt": png(os.path.join(img_dir, key + "_label.png")).astype(
                 np.int32),

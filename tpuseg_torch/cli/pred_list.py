@@ -7,7 +7,10 @@ Same flags and output layout as the JAX CLI:
 ``outputs/<dataset>/<modeldir>-<model>/<subset>/<image>/`` holding
 ``<image>.png``, ``-fg_mask.png``, ``-ins_mask.png``,
 ``-ins_mask_color.png`` and ``-n_objects.npy``.  Runs on the card
-(``--device cuda``, the default; bf16 unless ``--f32``).  Reading and
+(``--device cuda``, the default; bf16 unless ``--f32``, which runs the
+model in float32 with TF32 off: ``runtime/predict.py::tf32_off``).
+``--model`` takes a flax ``.msgpack`` or a checkpoint the train CLI
+wrote (``cli/common.py::load_model``).  Reading and
 writing PNGs needs Pillow.  ``--ndevices`` > 1, ``--bucketed`` and
 ``--staged`` belong to later slices of the port and raise.
 """

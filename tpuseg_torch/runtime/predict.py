@@ -66,9 +66,10 @@ class Predictor:
     ):
         """``model``: a ``ReSeg`` with its weights loaded (float32).
         ``dtype=torch.float32`` runs every call with TF32 off
-        (:func:`tf32_off`).  ``sync_rounds``: end extraction after the first round that leaves
-        every sample done (one host sync per round) instead of always
-        running ceil(max_instances / extract_group) rounds."""
+        (:func:`tf32_off`).  ``sync_rounds``: end extraction after the
+        first round that leaves every sample done (one host sync per round)
+        instead of always running ceil(max_instances / extract_group)
+        rounds."""
         self.device = resolve_device(device)
         if dtype is None:
             dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
@@ -88,21 +89,17 @@ class Predictor:
 
     @torch.no_grad()
     def _infer_full(self, images_u8: torch.Tensor):
-        strict = self.dtype == torch.float32
-        with tf32_off() if strict else contextlib.nullcontext():
-            return self._infer(images_u8)
-
-    def _infer(self, images_u8: torch.Tensor):
-        x = image_ex_standardize(images_u8).permute(0, 3, 1, 2)
-        x = x.contiguous(memory_format=torch.channels_last)
-        sem_probs, sem_mask, budget, score, partials = self.model.infer_prep(
-            x, max_instances=self.max_instances
-        )
-        idmap, counts, rounds = self.model.decoder.extract_rounds(
-            sem_mask, score, partials, max_instances=self.max_instances,
-            count_budget=budget, n_rounds=self.max_rounds,
-            stop_params=self.stop_params, sync_rounds=self.sync_rounds,
-        )
+        f32 = self.dtype == torch.float32
+        with tf32_off() if f32 else contextlib.nullcontext():
+            x = image_ex_standardize(images_u8).permute(0, 3, 1, 2)
+            x = x.contiguous(memory_format=torch.channels_last)
+            sem_probs, sem_mask, budget, score, partials = (
+                self.model.infer_prep(x, max_instances=self.max_instances))
+            idmap, counts, rounds = self.model.decoder.extract_rounds(
+                sem_mask, score, partials, max_instances=self.max_instances,
+                count_budget=budget, n_rounds=self.max_rounds,
+                stop_params=self.stop_params, sync_rounds=self.sync_rounds,
+            )
         self.rounds_run += rounds
         return sem_probs, idmap, counts
 
