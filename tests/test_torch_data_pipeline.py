@@ -235,12 +235,9 @@ def _files(root):
 
 @pytest.mark.parametrize("fmt", ["records", "both"])
 def test_prepare_outputs_equal_the_jax_scripts(tmp_path, monkeypatch, fmt):
-    if fmt == "both":
-        sys.path.insert(0, os.path.dirname(__file__))
-        try:
-            from test_torch_records import _FakeEnv, _fake_lmdb_module
-        finally:
-            sys.path.pop(0)
+    if fmt == "both":  # the in-memory lmdb stub of test_torch_records.py
+        from test_torch_records import _FakeEnv, _fake_lmdb_module
+
         monkeypatch.setitem(sys.modules, "lmdb", _fake_lmdb_module())
     for pkg in ("j", "t"):
         _raw_tree(tmp_path / pkg)
