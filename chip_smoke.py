@@ -84,7 +84,33 @@ Builds the port's CUDA kernels (``ir_chain``, ``masked_softmax``,
     decode) counters read around each run; prints steps/s with the loader
     and the share of the train loop spent waiting on the loader; then
     ``pred_list --model`` on the resumed run's checkpoint (its weights
-    must be the ones loaded) over 8 images and ``evaluate``.
+    must be the ones loaded) over 8 images and ``evaluate``;
+12. holds the staged extraction dispatch (one window of 3's 8 batches)
+    to the monolithic predictor in bf16 and f32: fg, id maps and counts
+    bit-equal; img/s of both alternated, 3 passes each; the rounds, host
+    syncs and ``ir_chain`` launches (20 a round) of one pass each;
+13. holds ``ir_chain`` against its plain version (phase 2's gates) at every
+    level shape that the decodes of the CVPPP 2017 shape buckets make
+    (A1 530x500 -> 576x512, unwindowed; A2 530x565 -> 576x576 and A4 441x441
+    -> 448x448, the window scaled; an A3-sized 2448x2048 capped at 1024),
+    N = 8 x 4, f32 and bf16, with ms a call, device ms a launch and the
+    bound;
+14. runs ``predict_paths_bucketed`` in bf16 and f32 over synthetic scenes
+    at those sizes: masks at each native size, 20 ``ir_chain`` launches a
+    round; SBD / |DiC| / FG dice and img/s beside fixed-256 inference; f32
+    on the card vs the CPU's plain path at the A4 bucket, B=2 (counts
+    equal, >= 99.9% of id-map pixels);
+15. runs ``python -m tpuseg_torch.cli.pred`` on one eval_hard64 image,
+    semantic and ``--instances`` (count and >= 99.9% of the id map equal to
+    phase 10's f32 ``pred_list``), then ``pred_list --staged --f32`` and
+    ``--bucketed --f32`` on eval_hard64, each equal to phase 10's f32
+    artifacts on 64/64 images;
+16. runs ``predict_cluster`` on one image: ids in 0..n, background 0;
+17. holds the ``debug`` mode in f32 on the card to the CPU (glimpse points
+    and pooled targets equal, alpha, score and logits within 1e-3 of their
+    max) with 1 ``masked_softmax`` and 20 ``ir_chain`` launches a debug
+    forward, then ``fit(debug_dir=...)`` for 2 steps at B=8 bf16: two dumps
+    of the JAX writer's 18 files, the launches counted.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises: the
@@ -1393,6 +1419,530 @@ def phase_cli_train(root, lst, smi):
     return runs
 
 
+# CVPPP 2017 image sizes (h, w) and how many scenes of each the bucketed
+# phases write: A1 530x500, A2 530x565, A4 441x441, and an A3-sized
+# 2448x2048 that the 1024 cap downscales
+CVPPP_SIZES = {"A1": (530, 500), "A2": (530, 565), "A4": (441, 441),
+               "A3": (2448, 2048)}
+CVPPP_COUNTS = {"A1": 8, "A2": 8, "A4": 8, "A3": 2}
+BUCKET_B = 8  # the bucketed predictor's batch (pred_list's default)
+IR_KERNEL_NAME = {"float32": "ir_block_kernel",
+                  "bfloat16": "ir_block_tc_kernel"}
+# the files one debug dump holds (tpuseg/utils/debug_images.py)
+DUMP_FILES = sorted([f"{kind}_{lvl}.jpg" for kind in ("p", "pred", "target")
+                     for lvl in range(5)] + ["proall.jpg", "pro.jpg",
+                                             "mas.jpg"])
+
+
+def reset_counts():
+    from tpuseg_torch.kernels.ir_chain import ir_chain
+    from tpuseg_torch.kernels.masked_softmax import masked_softmax
+
+    ir_chain.launches = 0
+    masked_softmax.launches = 0
+    masked_softmax.forward_launches = 0
+    masked_softmax.backward_launches = 0
+
+
+def phase_staged(cfg, model, dev, stop, batches, smi):
+    """The staged dispatch (one window of all 8 batches) against the
+    monolithic predictor on phase 4's images, bf16 and f32: outputs
+    bit-equal; img/s alternated in one call; host syncs, rounds and
+    ir_chain launches of one pass each."""
+    import torch
+
+    from tpuseg_torch.kernels.ir_chain import ir_chain
+    from tpuseg_torch.runtime.predict import Predictor
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        preds = {kind: Predictor(cfg, copy.deepcopy(model),
+                                 batch_size=len(batches[0]), device=dev,
+                                 dtype=dtype, stop_params=stop,
+                                 staged=kind == "staged")
+                 for kind in ("monolithic", "staged")}
+        run = {
+            "monolithic": lambda: [preds["monolithic"].predict_batch_packed(b)
+                                   for b in batches],
+            "staged": lambda: preds["staged"].predict_batches_staged(
+                batches, packed=True),
+        }
+        for fn in run.values():  # warm-up: cuDNN plans, allocator
+            fn()
+        res, secs, counts = {}, {k: [] for k in run}, {}
+        for i, kind in enumerate(["monolithic", "staged"] * 3):
+            p = preds[kind]
+            if i < 2:
+                reset_counts()
+                p.rounds_run = p.host_syncs = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = [(a.cpu().numpy(), c.cpu().numpy()) for a, c in run[kind]()]
+            torch.cuda.synchronize()
+            secs[kind].append(time.perf_counter() - t)
+            if i < 2:
+                counts[kind] = {"rounds": p.rounds_run,
+                                "host_syncs": p.host_syncs,
+                                "ir_chain_launches": ir_chain.launches}
+                if ir_chain.launches != 20 * p.rounds_run:
+                    raise AssertionError(
+                        f"{name} {kind}: ir_chain launches "
+                        f"{ir_chain.launches} != 5 levels x 4 blocks x "
+                        f"{p.rounds_run} rounds")
+                res[kind] = got
+        for (a0, c0), (a1, c1) in zip(res["monolithic"], res["staged"]):
+            if not (np.array_equal(a0, a1) and np.array_equal(c0, c1)):
+                raise AssertionError(
+                    f"{name}: staged fg / id maps / counts differ from the "
+                    "monolithic dispatch")
+        n_img = sum(len(b) for b in batches)
+        rate = {k: [n_img / s for s in v] for k, v in secs.items()}
+        out[name] = {"img_per_s": rate, "counts": counts,
+                     "round_chunks": sorted(preds["staged"].round_chunks)}
+        log(f"  staged {name}: bit-equal to the monolithic dispatch on "
+            f"{n_img} images; img/s monolithic "
+            f"{', '.join(f'{r:.2f}' for r in rate['monolithic'])} | staged "
+            f"{', '.join(f'{r:.2f}' for r in rate['staged'])} (alternated); "
+            f"one pass: monolithic {counts['monolithic']}, staged "
+            f"{counts['staged']}, staged chunks of "
+            f"{out[name]['round_chunks']} rounds [{smi}]")
+        del preds
+        torch.cuda.empty_cache()
+    return out
+
+
+def bucket_chain_shapes(cfg):
+    """{(level, h, w): bucket names} of the ir_chain calls that the decodes
+    of the CVPPP buckets make, windowed as ``decode_split`` windows them."""
+    from tpuseg_torch.decoder.pyramid import window_plan
+    from tpuseg_torch.runtime.predict import Predictor
+
+    shapes = {}
+    for name, (h, w) in CVPPP_SIZES.items():
+        bh, bw = Predictor._bucket_shape(h, w)
+        plan = window_plan(bh, bw, cfg.decoder.extract_window,
+                           cfg.decoder.extract_window_stride)
+        for lvl, f in enumerate((16, 8, 4, 2, 1)):
+            if plan is not None and f <= 2:
+                hw = (plan[0] // f, plan[0] // f)
+            else:
+                hw = (bh // f, bw // f)
+            shapes.setdefault((lvl, *hw), []).append(name)
+    return shapes
+
+
+def phase_bucket_chains(cfg, model, dev, smi):
+    """ir_chain kernel vs plain at every level shape of the CVPPP buckets'
+    decodes (N = BUCKET_B x G), f32 and bf16, with phase 2's gates; ms a
+    call (events), device ms a launch (profiler) and the bound."""
+    import torch
+
+    from tpuseg_torch.kernels.ir_chain import (
+        ir_chain, ir_chain_plain, stack_chain_params,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = BUCKET_B * max(int(cfg.decoder.extract_group), 1)
+    levels = model.decoder.bone.levels
+    g = torch.Generator(device="cpu").manual_seed(1)
+    rows = []
+    for (lvl, h, w), names in sorted(bucket_chain_shapes(cfg).items()):
+        c = levels[lvl].out_ch
+        blocks = [levels[lvl].dil1a, levels[lvl].dil1b, levels[lvl].dil2a,
+                  levels[lvl].dil2b]
+        x32 = torch.randn(n, h, w, c, generator=g).to(dev)
+        s32 = torch.randn(n, h, w, c, generator=g).to(dev) if lvl else None
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            params = [t.to(dev) for t in stack_chain_params(blocks, dtype)]
+            p32 = [t.float() for t in params]
+            x = x32.to(dtype)
+            s = None if s32 is None else s32.to(dtype)
+            got = ir_chain(x, s, *params)
+            torch.cuda.synchronize()
+            want = ir_chain_plain(x.float(), None if s is None else s.float(),
+                                  *p32)
+            err = (got.float() - want).abs().max().item()
+            scale = want.abs().max().item()
+            del got, want
+            tol = 1e-4 if dtype == torch.float32 else 2e-2
+            if not err <= tol * scale:
+                raise AssertionError(
+                    f"ir_chain {name} at bucket shape L{lvl} ({n},{h},{w},{c})"
+                    f" skip={s is not None} ({names}): max|err| {err:.3e} > "
+                    f"{tol} * max|y| {scale:.3e}")
+            iters = max(3, min(30, int(2e8 // (n * h * w * c))))
+            k_ms = cuda_ms(lambda: ir_chain(x, s, *params), iters)
+            dev_ms = kernel_device_ms(lambda: ir_chain(x, s, *params), 2,
+                                      IR_KERNEL_NAME[name], launches=4)
+            b_ms, o_ms = chain_bound(n, h, w, c, name, s is not None)
+            rows.append({
+                "level": lvl, "shape": [n, h, w, c], "dtype": name,
+                "skip": s is not None, "buckets": names, "ms": k_ms,
+                "device_ms_per_launch": None if dev_ms is None else dev_ms / 4,
+                "bound_ms": max(b_ms, o_ms),
+                "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                "max_abs_err": err, "max_abs_y": scale,
+            })
+            r = rows[-1]
+            dev_txt = ("not traced" if dev_ms is None
+                       else f"{r['device_ms_per_launch']:.4f} ms")
+            log(f"  ir_chain bucket L{lvl} {r['shape']} {name} "
+                f"({'/'.join(names)}): {k_ms:.3f} ms a call, device "
+                f"{dev_txt} a launch, bound {r['bound_ms']:.4f} ms a call "
+                f"({r['bound_by']}), max|err|/max|y| {err / scale:.2e}")
+        del x32, s32
+        torch.cuda.empty_cache()
+    log(f"  ir_chain at {len(rows) // 2} bucket level shapes x f32, bf16: "
+        f"within phase 2's gates [{smi}]")
+    return rows
+
+
+def write_cvppp_scenes(root, seed):
+    """Synthetic scenes at the CVPPP 2017 sizes as PNGs: (paths, {path:
+    (label map, semantic mask, count)})."""
+    from PIL import Image
+
+    from tpuseg_torch.data.synthetic import label_map, make_scene
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    paths, gt = [], {}
+    for name, (h, w) in CVPPP_SIZES.items():
+        for k in range(CVPPP_COUNTS[name]):
+            rgb, sem, ins, n = make_scene(rng, h, w, hard=True)
+            p = os.path.join(root, f"{name}_{k}_rgb.png")
+            Image.fromarray(rgb).save(p)
+            paths.append(p)
+            gt[p] = (label_map(ins), sem, n)
+    return paths, gt
+
+
+def scores(results, gt, dev):
+    """Mean SBD, |DiC| and FG dice of predictions against the scenes'
+    ground truth at native resolution."""
+    import torch
+
+    from tpuseg_torch.evalm import metrics
+
+    sbd, dic, fgd = [], [], []
+    for r in results:
+        label, sem, n = gt[r["path"]]
+        sbd.append(metrics.calc_sbd(torch.from_numpy(label).to(dev),
+                                    torch.from_numpy(r["ins_mask"]).to(dev)
+                                    ).item())
+        dic.append(abs(n - r["n_objects"]))
+        fgd.append(metrics.calc_dice(torch.from_numpy(sem).to(dev),
+                                     torch.from_numpy(r["fg_mask"]).to(dev)
+                                     ).item())
+    return float(np.mean(sbd)), float(np.mean(dic)), float(np.mean(fgd))
+
+
+def phase_bucketed(cfg, model, dev, stop, root, smi):
+    """predict_paths_bucketed in bf16 and f32 on scenes at the CVPPP 2017
+    sizes: outputs pixel-aligned; launches counted; quality and img/s
+    beside fixed-256 inference; f32 card vs the CPU's plain path at the
+    A4 bucket (448x448, B=2)."""
+    import torch
+
+    from tpuseg_torch.kernels.ir_chain import ir_chain
+    from tpuseg_torch.runtime.predict import Predictor
+
+    t0 = time.perf_counter()
+    paths, gt = write_cvppp_scenes(root, seed=31)
+    log(f"  bucketed: wrote {len(paths)} scenes at the CVPPP 2017 sizes in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        p = Predictor(cfg, copy.deepcopy(model), batch_size=BUCKET_B,
+                      device=dev, dtype=dtype, stop_params=stop)
+        for fn in (p.predict_paths_bucketed, p.predict_paths):  # warm-up
+            list(fn(paths))
+        reset_counts()
+        p.rounds_run = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = list(p.predict_paths_bucketed(paths))
+        torch.cuda.synchronize()
+        dt_b = time.perf_counter() - t
+        launches, rounds = ir_chain.launches, p.rounds_run
+        if launches == 0 or launches != 20 * rounds:
+            raise AssertionError(
+                f"bucketed {name}: ir_chain launches {launches} != 5 levels x"
+                f" 4 blocks x {rounds} rounds")
+        if [r["path"] for r in res] != paths:
+            raise AssertionError("bucketed results out of order")
+        for r in res:
+            h, w = gt[r["path"]][0].shape
+            if not (r["fg_mask"].shape == r["ins_mask"].shape == (h, w)):
+                raise AssertionError(
+                    f"bucketed {name}: {os.path.basename(r['path'])} masks "
+                    f"{r['ins_mask'].shape}, not its native {(h, w)}")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fixed = list(p.predict_paths(paths))
+        torch.cuda.synchronize()
+        dt_f = time.perf_counter() - t
+        q_b, q_f = scores(res, gt, dev), scores(fixed, gt, dev)
+        if not np.isfinite(q_b + q_f).all():
+            raise AssertionError(f"bucketed {name}: non-finite metrics")
+        out[name] = {
+            "bucketed": {"sbd": q_b[0], "abs_dic": q_b[1], "fg_dice": q_b[2],
+                         "img_per_s": len(paths) / dt_b},
+            "fixed_256": {"sbd": q_f[0], "abs_dic": q_f[1], "fg_dice": q_f[2],
+                          "img_per_s": len(paths) / dt_f},
+            "ir_chain_launches": launches, "rounds": rounds,
+        }
+        log(f"  bucketed {name} ({len(paths)} scenes: "
+            f"{', '.join(f'{k} x{v}' for k, v in CVPPP_COUNTS.items())}): SBD "
+            f"{q_b[0]:.4f} |DiC| {q_b[1]:.4f} FG dice {q_b[2]:.4f} at "
+            f"{len(paths) / dt_b:.2f} img/s, {launches} ir_chain launches over"
+            f" {rounds} rounds; fixed 256: SBD {q_f[0]:.4f} |DiC| "
+            f"{q_f[1]:.4f} FG dice {q_f[2]:.4f} at {len(paths) / dt_f:.2f} "
+            f"img/s (both with PNG reads and resizes) [{smi}]")
+        del p
+        torch.cuda.empty_cache()
+
+    # f32, card vs the CPU's plain path at the A4 bucket, B=2
+    a4 = [q for q in paths if os.path.basename(q).startswith("A4_")][:2]
+    got = {}
+    t0 = time.perf_counter()
+    for side, device in (("card", dev), ("cpu", "cpu")):
+        p = Predictor(cfg, copy.deepcopy(model), batch_size=2, device=device,
+                      dtype=torch.float32, stop_params=stop)
+        got[side] = list(p.predict_paths_bucketed(a4))
+    agree = np.mean([np.mean(a["ins_mask"] == b["ins_mask"])
+                     for a, b in zip(got["card"], got["cpu"])])
+    n_card = [r["n_objects"] for r in got["card"]]
+    n_cpu = [r["n_objects"] for r in got["cpu"]]
+    log(f"  bucketed f32 card vs CPU at the A4 bucket (448x448, B=2): counts "
+        f"card {n_card} cpu {n_cpu}, id-map agreement {agree:.6f}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if n_card != n_cpu:
+        raise AssertionError("bucketed f32 counts differ between card and CPU")
+    if not agree >= 0.999:
+        raise AssertionError(f"bucketed f32 id maps agree on only {agree:.4%}")
+    out["card_vs_cpu"] = {"bucket": [448, 448], "batch": 2,
+                          "idmap_agreement": float(agree), "counts": n_card}
+    return out
+
+
+def phase_pred_cli(root, eval_lst, smi):
+    """python -m tpuseg_torch.cli.pred on one eval_hard64 image (semantic
+    and --instances), held to phase 11's f32 pred_list output; pred_list
+    --staged and --bucketed through the CLI on eval_hard64, f32, held to
+    phase 11's f32 artifacts."""
+    import torch
+    from PIL import Image
+
+    from tpuseg_torch.cli import pred_list
+    from tpuseg_torch.kernels.ir_chain import ir_chain
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    ckpt = os.path.join(here, "assets", "synthetic_ckpt.msgpack")
+    with open(eval_lst) as f:
+        images = [q for q in f.read().splitlines() if q]
+    names = [os.path.splitext(os.path.basename(q))[0] for q in images]
+    f32_dir = os.path.join(root, "eval", "pred_f32")
+    want = _per_image(f32_dir, names)
+    out = {}
+    img, name = images[0], names[0]
+    for mode, flags in (("semantic", []), ("instances", ["--instances"])):
+        d = os.path.join(root, "pred_" + mode)
+        t = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "tpuseg_torch.cli.pred",
+                        "--image", img, "--model", ckpt, "--output", d]
+                       + flags, cwd=here, check=True, timeout=600)
+        out[mode + "_wall_s"] = time.perf_counter() - t
+        files = sorted(os.listdir(d))
+        n_files = 5 if flags else 1
+        if len(files) != n_files:
+            raise AssertionError(f"pred {mode} wrote {files}")
+    base = os.path.join(root, "pred_instances", name)
+    count = int(np.load(base + "-n_objects.npy"))
+    ins = np.asarray(Image.open(base + "-ins_mask.png"))
+    ref = np.asarray(Image.open(os.path.join(f32_dir, name,
+                                             name + "-ins_mask.png")))
+    agree = float(np.mean(ins == ref))
+    if count != want[name][0] or not agree >= 0.999:
+        raise AssertionError(
+            f"pred --instances on {name}: count {count} (pred_list f32 "
+            f"{want[name][0]}), id-map agreement {agree:.4%}")
+    fg = np.asarray(Image.open(os.path.join(root, "pred_semantic",
+                                            name + "-fg_mask.png")))
+    out.update({"image": name, "count": count, "idmap_agreement": agree,
+                "fg_pixels": int((fg > 0).sum())})
+    log(f"  pred CLI on {name}: semantic {out['semantic_wall_s']:.1f} s, "
+        f"--instances {out['instances_wall_s']:.1f} s (a process each: "
+        f"start-up, weights, f32 forward, PNG writes); count {count} = "
+        f"pred_list f32's, id-map agreement {agree:.6f} [{smi}]")
+
+    made = _recording_predictors()
+    for mode in ("staged", "bucketed"):
+        d = os.path.join(root, "pred_list_" + mode)
+        ir_chain.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pred_list.main(["--lst", eval_lst, "--model", ckpt, "--dataset",
+                        "CVPPP", "--batchsize", "16", "--f32", "--output", d,
+                        "--" + mode])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = _per_image(d, names)
+        same = sum(got[k] == want[k] for k in names)
+        p = made[-1]
+        out[mode] = {"wall_s": wall, "artifacts_equal_f32": same,
+                     "ir_chain_launches": ir_chain.launches,
+                     "rounds": p.rounds_run, "host_syncs": p.host_syncs}
+        log(f"  pred_list --{mode} --f32 on eval_hard64: counts and id maps "
+            f"(sha256) equal to phase 11's f32 on {same}/64 images; "
+            f"{ir_chain.launches} ir_chain launches over {p.rounds_run} "
+            f"rounds, {p.host_syncs} host syncs; wall {wall:.2f} s")
+        if p.staged != (mode == "staged"):
+            raise AssertionError(f"pred_list --{mode} built staged={p.staged}")
+        if same != 64:
+            raise AssertionError(
+                f"pred_list --{mode} --f32 differs from phase 11's f32 "
+                f"artifacts on {64 - same} images")
+    return out
+
+
+def phase_cluster(cfg, model, dev, eval_lst, smi):
+    """predict_cluster on one image on the card: ids in 0..n, background 0."""
+    import torch
+
+    from tpuseg_torch.runtime.predict import Predictor
+
+    with open(eval_lst) as f:
+        img = f.read().splitlines()[0]
+    p = Predictor(cfg, copy.deepcopy(model), batch_size=1, device=dev)
+    p.predict_cluster(img, seed=0)  # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = p.predict_cluster(img, seed=0)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t)
+    ins, fg, n = res["ins_mask"], res["fg_mask"], res["n_objects"]
+    ids = set(np.unique(ins).tolist())
+    if not (1 <= n <= cfg.data.max_n_objects and ids <= set(range(n + 1))
+            and (ins[fg == 0] == 0).all()):
+        raise AssertionError(
+            f"predict_cluster: n {n}, ids {sorted(ids)}, ids off the "
+            f"foreground {int((ins[fg == 0] > 0).sum())}")
+    log(f"  predict_cluster ({p.dtype}, {os.path.basename(img)}): {n} "
+        f"clusters, {len(ids - {0})} non-empty, {ms:.1f} ms with the PNG read"
+        f" (KMeans: 8 restarts x 50 Lloyd steps, one program) [{smi}]")
+    return {"ms": ms, "n_objects": n, "ids_used": len(ids - {0})}
+
+
+def phase_debug(cfg, model, dev, root, smi):
+    """The debug mode in f32, card vs CPU, at 256x256 B=2; the card's
+    debug forward's launches; then fit(debug_dir=...) for 2 steps at B=8
+    bf16 with the dumps checked and the launches counted."""
+    import torch
+
+    from tpuseg_torch.data.synthetic import make_batch
+    from tpuseg_torch.kernels.ir_chain import ir_chain
+    from tpuseg_torch.kernels.masked_softmax import (
+        BACKWARD_LAUNCHES, FORWARD_LAUNCHES, masked_softmax,
+    )
+    from tpuseg_torch.runtime.loop import fit
+    from tpuseg_torch.runtime.predict import tf32_off
+    from tpuseg_torch.runtime.state import create_train_state
+    from tpuseg_torch.runtime.train import make_debug_step
+
+    rng = np.random.default_rng(41)
+    batch = make_batch(rng, 2, 256, 256, cfg.data.max_n_objects, hard=True)
+    got, launches = {}, {}
+    for side, device in (("cpu", "cpu"), ("card", dev)):
+        m = copy.deepcopy(model)
+        state = create_train_state(cfg, m, device=device)
+        step = make_debug_step(cfg, m)
+        with tf32_off():
+            reset_counts()
+            dbg = step(state, batch)
+            if side == "card":
+                torch.cuda.synchronize()
+                launches = {"masked_softmax": masked_softmax.forward_launches,
+                            "ir_chain": ir_chain.launches}
+        got[side] = {k: ([t.cpu() for t in v] if isinstance(v, list)
+                         else v.cpu()) for k, v in dbg.items()}
+    if launches != {"masked_softmax": FORWARD_LAUNCHES, "ir_chain": 20}:
+        raise AssertionError(
+            f"debug forward launches {launches}: want masked_softmax "
+            f"{FORWARD_LAUNCHES} (one attend) and ir_chain 20 (one decode: "
+            "5 levels x 4 blocks)")
+    c, g = got["cpu"], got["card"]
+    if not torch.equal(c["point"], g["point"]):
+        # two pixels whose attention mass ties may turn the argmax; then
+        # the decodes of different glimpses are not compared
+        rows = torch.arange(len(c["point"]))
+        a = c["alpha"][rows, c["point"]]
+        b = c["alpha"][rows, g["point"]]
+        gap = ((a - b).abs() / torch.maximum(a, b).clamp(min=1e-30)).max()
+        log(f"  debug glimpse points cpu {c['point'].tolist()} card "
+            f"{g['point'].tolist()}: attention mass ties to {gap:.2e}")
+        if not gap <= 1e-3:
+            raise AssertionError("debug glimpse points differ without a tie")
+        g["preds"], g["targets"] = c["preds"], c["targets"]
+    errs = {}
+    for k in ("alpha", "pro"):
+        errs[k] = (g[k] - c[k]).abs().max().item() / c[k].abs().max().item()
+    errs["preds"] = max((a - b).abs().max().item() / b.abs().max().item()
+                        for a, b in zip(g["preds"], c["preds"]))
+    same_t = all(torch.equal(a, b) for a, b in zip(g["targets"], c["targets"]))
+    log(f"  debug f32 card vs CPU (256x256, B=2): points equal "
+        f"{g['point'].tolist()}, targets equal {same_t}, max|err|/max|ref| "
+        f"alpha {errs['alpha']:.2e} pro {errs['pro']:.2e} preds (worst level) "
+        f"{errs['preds']:.2e}; card launches {launches}")
+    if not (same_t and errs["alpha"] <= 1e-3 and errs["pro"] <= 1e-3
+            and errs["preds"] <= 1e-3):
+        raise AssertionError(f"debug card vs CPU: targets equal {same_t}, "
+                             f"errors {errs} (gate 1e-3 of max|ref|)")
+
+    # fit with the dumps: 2 train steps + 1 validation batch, B=8, bf16
+    batches = [make_batch(rng, 8, 256, 256, cfg.data.max_n_objects,
+                          hard=True) for _ in range(3)]
+    m = copy.deepcopy(model)
+    state = create_train_state(cfg, m, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
+    dump = os.path.join(root, "debug")
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fit(cfg, m, state, lambda e: batches[:2], lambda e: batches[2:],
+        os.path.join(root, "run"), n_epochs=1, generator=gen,
+        dtype=torch.bfloat16, debug_dir=dump, debug_every=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    counts = {"forward": masked_softmax.forward_launches,
+              "backward": masked_softmax.backward_launches,
+              "ir_chain": ir_chain.launches}
+    dirs = sorted(os.listdir(dump))
+    if dirs != ["ep000_it00001", "ep000_it00002"] or any(
+            sorted(os.listdir(os.path.join(dump, d))) != DUMP_FILES
+            for d in dirs):
+        raise AssertionError(f"fit debug dumps: {dirs}: "
+                             f"{[os.listdir(os.path.join(dump, d)) for d in dirs]}")
+    # 2 train + 1 validation + 2 debug forwards; 2 backwards; 2 debug
+    # decodes and the validation decode's glimpses
+    if (counts["forward"] != FORWARD_LAUNCHES * 5
+            or counts["backward"] != BACKWARD_LAUNCHES * 2
+            or counts["ir_chain"] < 20 * 3 or counts["ir_chain"] % 20):
+        raise AssertionError(f"fit with debug dumps: launches {counts}")
+    log(f"  fit(debug_dir=..., debug_every=1): 2 steps B=8 bf16 + 1 "
+        f"validation batch in {fit_s:.1f} s; dumps {dirs} with the JAX "
+        f"writer's {len(DUMP_FILES)} files each; masked_softmax forward "
+        f"{counts['forward']} (2 train + 1 validation + 2 debug) backward "
+        f"{counts['backward']}, ir_chain {counts['ir_chain']} (2 debug "
+        f"decodes = 40 + the validation decode) [{smi}]")
+    return {"card_vs_cpu": errs, "debug_forward_launches": launches,
+            "fit_launches": counts, "fit_seconds": fit_s}
+
+
 def make_images(n, seed):
     from tpuseg_torch.data.synthetic import label_map, make_scene
 
@@ -1572,7 +2122,7 @@ def main() -> int:
     ext_ms = cuda_ms(lambda: pred.model.decoder.extract_rounds(
         prep_out[1], prep_out[3], prep_out[4], count_budget=prep_out[2],
         n_rounds=pred.max_rounds, stop_params=stop), 3)
-    _, _, r1 = pred.model.decoder.extract_rounds(
+    _, _, _, r1 = pred.model.decoder.extract_rounds(
         prep_out[1], prep_out[3], prep_out[4], count_budget=prep_out[2],
         n_rounds=pred.max_rounds, stop_params=stop)
     # the main path's chain calls: bf16, the mid-chain skip on every
@@ -1635,6 +2185,39 @@ def main() -> int:
         cli_train = phase_cli_train(os.path.join(work, "train"), eval_lst,
                                     smi)
         log(f"phase cli-train: {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 13: the staged dispatch vs the monolithic one, phase 4's
+        # images, bf16 and f32
+        t0 = time.perf_counter()
+        staged = phase_staged(cfg, model, dev, stop, batches, smi)
+        log(f"phase staged: {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 14: ir_chain at the CVPPP buckets' level shapes
+        t0 = time.perf_counter()
+        bucket_rows = phase_bucket_chains(
+            cfg, copy.deepcopy(model).to(dev).eval(), dev, smi)
+        log(f"phase bucket-chains: {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 15: bucketed inference end to end at the CVPPP sizes
+        t0 = time.perf_counter()
+        bucketed = phase_bucketed(cfg, model, dev, stop,
+                                  os.path.join(work, "cvppp"), smi)
+        log(f"phase bucketed: {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 16: the pred CLI, pred_list --staged / --bucketed
+        t0 = time.perf_counter()
+        pred_cli = phase_pred_cli(work, eval_lst, smi)
+        log(f"phase pred-cli: {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 17: predict_cluster on the card
+        t0 = time.perf_counter()
+        cluster = phase_cluster(cfg, model, dev, eval_lst, smi)
+        log(f"phase cluster: {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 18: the debug mode, card vs CPU; fit's debug dumps
+        t0 = time.perf_counter()
+        debug = phase_debug(cfg, model, dev, os.path.join(work, "debug"), smi)
+        log(f"phase debug: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1652,12 +2235,15 @@ def main() -> int:
         "e2e_f32_idmap_agreement": agree,
         "sru_stack": sru_stack, "sru_train": sru_train,
         "cli_eval": cli_eval, "cli_train": cli_train,
+        "staged": staged, "bucketed": bucketed, "pred_cli": pred_cli,
+        "cluster": cluster, "debug": debug,
         "seconds": time.perf_counter() - t_all,
     }
     log("summary " + json.dumps(summary))
     log("ir_chain rows " + json.dumps(rows))
     log("masked_softmax rows " + json.dumps(sm_rows))
     log("sru_scan rows " + json.dumps(sru_rows))
+    log("ir_chain bucket rows " + json.dumps(bucket_rows))
     # the training path's scan: uni, k = 3, identity, dropout mask, 35 steps
     sru_main = [r for r in sru_rows if r["length"] == SRU_LM["length"]
                 and not r["bidirectional"] and r["activation"] == 0
@@ -1702,6 +2288,21 @@ def main() -> int:
         "launches_cli_train_validation": sum(
             cli_train[r]["launches"]["ir_chain"]
             for r in ("train", "resume", "device_aug")),
+        # phases 13-18: one staged pass of the 256 images, one bucketed
+        # pass of the CVPPP-size scenes, the debug forward and fit's run
+        # with the dumps (2 debug decodes + the validation decode)
+        "launches_staged": {d: staged[d]["counts"]["staged"][
+            "ir_chain_launches"] for d in ("bfloat16", "float32")},
+        "launches_bucketed": {d: bucketed[d]["ir_chain_launches"]
+                              for d in ("bfloat16", "float32")},
+        "launches_debug": {
+            "forward": debug["debug_forward_launches"]["ir_chain"],
+            "fit_with_dumps": debug["fit_launches"]["ir_chain"]},
+        # per bucket level shape: ms a call (events), device ms a launch
+        # (profiler) and the bound of a call, f32 and bf16
+        "bucket_shapes": [{k: r[k] for k in (
+            "level", "shape", "dtype", "skip", "ms", "device_ms_per_launch",
+            "bound_ms", "bound_by")} for r in bucket_rows],
     }, {
         "name": "masked_softmax",
         "route": "cuda",
@@ -1717,6 +2318,12 @@ def main() -> int:
             cli_train[r]["launches"]["forward"]
             + cli_train[r]["launches"]["backward"]
             for r in ("train", "resume", "device_aug")),
+        # phase 18: the debug forward, and fit's 2 steps with the dumps
+        # (forward + backward)
+        "launches_debug": {
+            "forward": debug["debug_forward_launches"]["masked_softmax"],
+            "fit_with_dumps": debug["fit_launches"]["forward"]
+            + debug["fit_launches"]["backward"]},
         "checked": True,
         "max_abs_err": sm_p_err,
         "max_rel_err_backward": sm_de_rel,

@@ -275,13 +275,25 @@ def _train_argv(tmp_path, *extra):
 
 
 @pytest.mark.parametrize("flag", [["--ndevices", "2"], ["--live"],
-                                  ["--tensorboard"], ["--debug"]])
+                                  ["--tensorboard"]])
 def test_train_flags_of_later_slices_raise(tmp_path, flag):
     from tpuseg_torch.cli import train
 
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         train.main(_train_argv(tmp_path, *flag))
     assert not (tmp_path / "runs").exists()
+
+
+def test_pred_list_ndevices_of_a_later_slice_raises(tmp_path):
+    from tpuseg_torch.cli import pred_list
+
+    lst = tmp_path / "validation_image_paths.txt"
+    lst.write_text("missing.png\n")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
+        pred_list.main(["--lst", str(lst), "--model", CKPT, "--dataset",
+                        "CVPPP", "--ndevices", "2", "--device", "cpu",
+                        "--output", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
 
 
 def test_train_cli_runs_resumes_and_serves(tmp_path, monkeypatch):

@@ -254,9 +254,6 @@ def test_later_slices_raise_by_name(tmp_path, variables):
     with pytest.raises(NotImplementedError, match="mesh"):
         fit(cfg, model, state, lambda e: [], lambda e: [], str(tmp_path),
             mesh=object())
-    with pytest.raises(NotImplementedError, match="debug"):
-        fit(cfg, model, state, lambda e: [], lambda e: [], str(tmp_path),
-            debug_dir=str(tmp_path))
     from tpuseg_torch.runtime.metrics_log import MetricLogger
 
     with pytest.raises(NotImplementedError):

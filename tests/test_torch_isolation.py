@@ -50,6 +50,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                  "data.scripts.prepare", "cli.evaluate", "cli.train",
                  "settings"):
         assert f"tpuseg_torch.{name}" in res["imported"], name
+    # and the inference entry points' slice: pred, clustering, debug dumps
+    for name in ("cli.pred", "runtime.cluster", "nn.coord_conv",
+                 "utils.debug_images"):
+        assert f"tpuseg_torch.{name}" in res["imported"], name
     assert res["bad"] == []
 
 
@@ -82,6 +86,30 @@ def test_entry_points_default_to_cuda():
         evaluate.main(["--pred_dir", "unused", "--dataset", "CVPPP"])
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--dataset", "CVPPP"])
+
+
+def test_other_inference_entry_points_default_to_cuda(tmp_path):
+    """``pred`` (both modes) and ``pred_list --staged`` / ``--bucketed``
+    raise without CUDA before they read or write anything; the staged
+    predictor, and with it ``predict_cluster``, raise at construction."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is usable here")
+    from tpuseg_torch.cli import pred, pred_list
+    from tpuseg_torch.configs import cvppp_config
+    from tpuseg_torch.runtime.predict import Predictor
+
+    for extra in ([], ["--instances"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pred.main(["--image", "unused.png", "--output",
+                       str(tmp_path / "pred")] + extra)
+    for flag in ("--staged", "--bucketed"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pred_list.main(["--lst", "unused.txt", "--model",
+                            "unused.msgpack", "--dataset", "CVPPP",
+                            "--output", str(tmp_path / "pl"), flag])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Predictor(cvppp_config(), None, staged=True)
+    assert not any(tmp_path.iterdir())
 
 
 def test_kernel_wrappers_do_not_fall_back_off_the_cpu():

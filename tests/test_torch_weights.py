@@ -41,6 +41,20 @@ def test_reader_matches_flax_msgpack_restore():
         assert g.tobytes() == np.asarray(w).tobytes(), path
 
 
+def test_reader_reads_numpy_scalar_leaves():
+    """flax packs a numpy scalar leaf as ext type 3 holding the (shape,
+    dtype, bytes) triple of its 0-d array."""
+    tree = {"a": {"s": np.float32(1.5), "i": np.int32(-7)},
+            "b": np.arange(6, dtype=np.float32).reshape(2, 3)}
+    want = flax.serialization.msgpack_restore(
+        flax.serialization.to_bytes(tree))
+    got = read_msgpack(flax.serialization.to_bytes(tree))
+    for path, w in _leaves(want):
+        g = dict(_leaves(got))[path]
+        assert type(g) is type(w) and g.dtype == w.dtype, path
+        assert np.asarray(g).tobytes() == np.asarray(w).tobytes(), path
+
+
 def test_checkpoint_loads_every_leaf_into_reseg():
     ckpt = read_msgpack(CKPT)
     sd = from_flax(ckpt)

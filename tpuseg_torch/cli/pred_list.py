@@ -10,9 +10,16 @@ Same flags and output layout as the JAX CLI:
 (``--device cuda``, the default; bf16 unless ``--f32``, which runs the
 model in float32 with TF32 off: ``runtime/predict.py::tf32_off``).
 ``--model`` takes a flax ``.msgpack`` or a checkpoint the train CLI
-wrote (``cli/common.py::load_model``).  Reading and
-writing PNGs needs Pillow.  ``--ndevices`` > 1, ``--bucketed`` and
-``--staged`` belong to later slices of the port and raise.
+wrote (``cli/common.py::load_model``).  Reading and writing PNGs needs
+Pillow.
+
+``--staged`` runs the staged extraction dispatch (windows of 8 batches,
+the same outputs; off by default, as in the JAX CLI); ``--bucketed`` runs
+each image near its native size on a shape-bucket canvas and writes masks
+pixel-aligned with it.  ``--window`` / ``--window_stride`` default to the
+environment variables ``TPUSEG_EXTRACT_WINDOW`` /
+``TPUSEG_EXTRACT_WINDOW_STRIDE`` (-1 when unset: the config's values).
+``--ndevices`` > 1 is not ported and raises.
 """
 
 from __future__ import annotations
@@ -47,17 +54,24 @@ def _parser():
     p.add_argument("--f32", action="store_true",
                    help="disable the bfloat16 inference compute path")
     p.add_argument("--ndevices", type=int, default=1,
-                   help="data-parallel devices (only 1 in this port)")
+                   help="data-parallel devices (0 = all available); only 1 "
+                        "is ported")
     p.add_argument("--bucketed", action="store_true",
-                   help="mixed-resolution bucketed inference (not ported)")
+                   help="mixed-resolution bucketed inference: no fixed "
+                        "resize; images run at native resolution rounded up "
+                        "to shape buckets")
     p.add_argument("--staged", action="store_true", default=None,
-                   help="staged extraction dispatch (not ported)")
+                   help="staged extraction dispatch: the rounds the budget "
+                        "asks for, then 2-round chunks; identical outputs")
     p.add_argument("--no-staged", dest="staged", action="store_false",
-                   help="monolithic inference (the port's only mode)")
-    p.add_argument("--window", type=int, default=-1,
+                   help="force the monolithic dispatch (the default)")
+    p.add_argument("--window", type=int,
+                   default=int(os.environ.get("TPUSEG_EXTRACT_WINDOW", "-1")),
                    help="windowed finest-level decode size in pixels; -1 "
                         "keeps the config default, 0 disables")
-    p.add_argument("--window_stride", type=int, default=-1,
+    p.add_argument("--window_stride", type=int,
+                   default=int(os.environ.get("TPUSEG_EXTRACT_WINDOW_STRIDE",
+                                              "-1")),
                    help="origin-grid stride of the windowed decode; -1 keeps "
                         "the config default")
     p.add_argument("--device", default="cuda",
@@ -69,10 +83,12 @@ def main(argv=None):
     t_start = time.perf_counter()
     opt = _parser().parse_args(argv)
     device = resolve_device(opt.device)
-    if opt.ndevices != 1 or opt.bucketed or opt.staged:
+    n_dev = opt.ndevices or (torch.cuda.device_count()
+                             if device.type == "cuda" else 1)
+    if n_dev > 1:
         raise NotImplementedError(
-            "--ndevices > 1, --bucketed and --staged are not ported yet"
-        )
+            "data-parallel inference (--ndevices > 1) is not ported yet: "
+            "ROADMAP Queue 1 item 5")
     if opt.dataset != "CVPPP":
         raise ValueError(f"unknown dataset {opt.dataset}")
     from PIL import Image
@@ -101,12 +117,14 @@ def main(argv=None):
     predictor = Predictor(
         cfg, model, batch_size=opt.batchsize, stop_params=load_stop_params(),
         device=device, dtype=torch.float32 if opt.f32 else None,
+        staged=bool(opt.staged),
     )
     t_ready = time.perf_counter()
 
     names = [os.path.splitext(os.path.basename(p))[0] for p in images_list]
-    for name, res in zip(names,
-                         predictor.predict_paths([str(p) for p in images_list])):
+    predict = (predictor.predict_paths_bucketed if opt.bucketed
+               else predictor.predict_paths)
+    for name, res in zip(names, predict([str(p) for p in images_list])):
         out_dir = os.path.join(output_path, name)
         os.makedirs(out_dir, exist_ok=True)
         fg = (res["fg_mask"] * 255).astype(np.uint8)

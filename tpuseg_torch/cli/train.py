@@ -19,8 +19,10 @@ After each epoch's train loop the CLI prints the loop's steps/s with the
 loader included, and the share of that wall time the loop spent waiting
 for the ``PrefetchLoader``.
 
-``--ndevices`` > 1, ``--live``, ``--tensorboard`` and ``--debug`` belong
-to later slices of the port and raise.
+``--debug`` prints the cost every 10 steps and writes the debug images of
+a single-glimpse forward every 40 train steps under ``<run_dir>/debug``.
+``--ndevices`` > 1, ``--live`` and ``--tensorboard`` belong to later slices
+of the port and raise.
 """
 
 from __future__ import annotations
@@ -54,8 +56,6 @@ _LATER = {
             "Queue 1 item 4",
     "tensorboard": "--tensorboard (the TensorBoard writer) is not ported "
                    "yet: ROADMAP Queue 1 item 4",
-    "debug": "--debug (periodic logs and the debug image dumps) is not "
-             "ported yet: ROADMAP Queue 1 item 4",
 }
 
 
@@ -144,7 +144,7 @@ def main(argv=None) -> dict:
     n_dev = opt.ndevices or (torch.cuda.device_count()
                              if device.type == "cuda" else 1)
     for flag, on in (("ndevices", n_dev > 1), ("live", opt.live),
-                     ("tensorboard", opt.tensorboard), ("debug", opt.debug)):
+                     ("tensorboard", opt.tensorboard)):
         if on:
             raise NotImplementedError(_LATER[flag])
 
@@ -194,6 +194,8 @@ def main(argv=None) -> dict:
         cfg, state.model, state,
         lambda epoch: clock(train_loader.epoch(epoch)),
         val_loader.epoch, run_dir, n_epochs=opt.nepochs,
+        log_every=10 if opt.debug else 0,
+        debug_dir=os.path.join(run_dir, "debug") if opt.debug else None,
         device_aug=opt.device_aug,
         dtype=torch.bfloat16 if opt.bf16 else None,
     )

@@ -10,15 +10,20 @@ add up the pyramid focal + dice losses, a REINFORCE term with an EMA
 baseline and an entropy regulariser.  The JAX ``nn.scan`` over static
 glimpse slots is a Python loop here.
 
-The extraction path (``prep`` and ``extract_rounds``): each extraction round picks ``G`` disk-suppressed attention peaks in the
-remaining foreground, decodes all ``G`` masks in one pyramid pass with the
-glimpses folded into the batch, and carves them out in peak order (an
-earlier peak wins overlaps).  The JAX ``lax.scan`` over rounds becomes a
-Python loop; by default it stops once every sample is done, which costs
-one host sync per round (``sync_rounds=False`` runs every round without
-syncing — a round in which every sample is done changes nothing).  Tie
-rules follow the JAX package: ``argmax`` takes the first index and
-``round`` is half-to-even.
+The extraction path (``prep`` and ``extract_rounds``): each extraction
+round picks ``G`` disk-suppressed attention peaks in the remaining
+foreground, decodes all ``G`` masks in one pyramid pass with the glimpses
+folded into the batch, and carves them out in peak order (an earlier peak
+wins overlaps).  The JAX ``lax.scan`` over rounds becomes a Python loop;
+by default it stops once every sample is done, which costs one host sync
+per round (``sync_rounds=False`` runs every round without syncing — a
+round in which every sample is done changes nothing).  The loop's state
+comes back as a carry that a later call continues from.  Tie rules follow
+the JAX package: ``argmax`` takes the first index and ``round`` is
+half-to-even.
+
+``debug`` is the single-glimpse forward behind the training loop's image
+dumps.
 
 Tensors are NCHW: masks and targets ``(B, 1, h, w)``, logits
 ``(B, 2, h, w)``, instance masks ``(B, N, H, W)``.
@@ -344,6 +349,26 @@ class InstanceDecoder(nn.Module):
                 out["debug_hent"] = torch.zeros((k_static,), device=dev)
         return out
 
+    @torch.no_grad()
+    def debug(self, encode, sem_mask, target, feats) -> Dict[str, object]:
+        """Single-glimpse debug forward for the periodic image dumps (eval
+        mode): attend with the instance masks, take instance slot 0's
+        argmax glimpse, decode it in one full-canvas pyramid pass.
+        Returns dict(preds, targets: the 5 per-level logits (B, 2, h, w) and
+        pooled gold masks (B, 1, h, w); alpha (B, H*W) slot 0's
+        distribution; pro (B, 1, H, W) the merged score; point (B,))."""
+        b = encode.shape[0]
+        sem = sem_mask.to(encode.dtype)
+        pro_split, pro_merge = self.attend(self.s_sp(encode, sem), sem, target)
+        gold = target[:, 0:1].to(torch.float32)
+        alpha = pro_split[:, 0].reshape(b, -1)
+        s = alpha.argmax(dim=1)
+        bone = self.bone
+        targets, preds = bone.decode(s, bone.transform_skips(feats),
+                                     sem_mask, gold)
+        return {"preds": preds, "targets": targets, "alpha": alpha,
+                "pro": pro_merge, "point": s}
+
     def prep(self, encode, sem_mask, feats):
         """Glimpse-independent half of extraction, once per batch: the
         attention score and the per-level conv1 partials of the
@@ -359,13 +384,21 @@ class InstanceDecoder(nn.Module):
         self, sem_mask, score, partials, max_instances: Optional[int] = None,
         count_budget=None, n_rounds: Optional[int] = None,
         stop_params=None, sync_rounds: bool = True,
-    ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        carry_in: Optional[Dict[str, torch.Tensor]] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor], int]:
         """Extraction rounds from prepped (score, partials).
 
         sem_mask / score: (B, 1, H, W).  Returns (idmap (B, H, W) int32
-        with 0 = background, counts (B,) int32, rounds run).  With
-        ``sync_rounds`` the loop ends after the first round that leaves
-        every sample done (one host sync per round)."""
+        with 0 = background, counts (B,) int32, carry_out, rounds run).
+        With ``sync_rounds`` the loop ends after the first round that
+        leaves every sample done (one host sync per round); without, it
+        runs ``n_rounds`` rounds and never syncs.
+
+        ``carry_out`` holds the whole extraction state: ``remaining``
+        (B, H, W) float32, ``idmap`` (B, H, W) int32, ``count``, ``done``
+        and ``misses`` (B,).  Passing it back as ``carry_in`` continues
+        extraction exactly where it stopped (the staged predictor's round
+        chunks)."""
         cfg = self.cfg
         b, _, h, w = sem_mask.shape
         hw = h * w
@@ -388,11 +421,17 @@ class InstanceDecoder(nn.Module):
         else:
             max_count = torch.clamp(count_budget.to(torch.int32),
                                     max=k_static)
-        remaining = sem.clone()
-        idmap = torch.zeros((b, hw), dtype=torch.int32, device=dev)
-        count = torch.zeros((b,), dtype=torch.int32, device=dev)
-        misses = torch.zeros((b,), dtype=torch.int32, device=dev)
-        done = fg_px <= stop_pixels
+        if carry_in is None:
+            remaining = sem.clone()
+            idmap = torch.zeros((b, hw), dtype=torch.int32, device=dev)
+            count = torch.zeros((b,), dtype=torch.int32, device=dev)
+            misses = torch.zeros((b,), dtype=torch.int32, device=dev)
+            done = fg_px <= stop_pixels
+        else:
+            remaining = carry_in["remaining"].reshape(b, hw)
+            idmap = carry_in["idmap"].reshape(b, hw)
+            count, misses, done = (carry_in[k] for k in
+                                   ("count", "misses", "done"))
 
         radius = torch.clamp(torch.sqrt(min_pixels), min=3.0)
         est_r = torch.sqrt(
@@ -465,4 +504,7 @@ class InstanceDecoder(nn.Module):
                     done | (rem_px <= stop_pixels) | (misses >= max_misses)
                     | (count >= max_count)
                 )
-        return idmap.reshape(b, h, w), count, rounds
+        carry = {"remaining": remaining.reshape(b, h, w),
+                 "idmap": idmap.reshape(b, h, w), "count": count,
+                 "done": done, "misses": misses}
+        return carry["idmap"], count, carry, rounds

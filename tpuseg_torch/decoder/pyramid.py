@@ -110,6 +110,25 @@ def window_origin(point_flat, full_hw, win: int, stride: int = 0):
     return ir, ic, onehot, n_r, n_c
 
 
+def window_plan(H: int, W: int, window: int, window_stride: int = 0
+                ) -> Optional[Tuple[int, int]]:
+    """(window, stride) of ``decode_split``'s windowed decode on an H x W
+    canvas, or None where the decode runs unwindowed.  Only square
+    canvases are windowed; the window (stride default: half of it) is
+    calibrated at 256 and scales with the canvas; it must tile the canvas
+    on its stride grid, both multiples of 4."""
+    if not window or H != W:
+        return None
+    stride = window_stride or (window // 2)
+    if H != 256:
+        window = window * H // 256
+        stride = max(stride * H // 256, 4)
+    if (window % 4 == 0 and stride % 4 == 0 and 0 < window < H
+            and (H - window) % stride == 0 and (W - window) % stride == 0):
+        return window, stride
+    return None
+
+
 def _crop(x, idx, onehot, n_c, wl, sl):
     """x[idx[i], :, r_i*sl : r_i*sl+wl, c_i*sl : c_i*sl+wl] for each row i
     of ``onehot`` (origin k = r*n_c + c)."""
@@ -440,18 +459,10 @@ class AttenDecoder(nn.Module):
         only the last."""
         H = partials[-1].shape[2] * _FACTORS[-1]
         W = partials[-1].shape[3] * _FACTORS[-1]
-        use_win = bool(window) and H == W
+        plan = window_plan(H, W, window, window_stride)
+        use_win = plan is not None
         if use_win:
-            stride = window_stride or (window // 2)
-            if H != 256:
-                # the window is calibrated at the 256 canvas
-                window = window * H // 256
-                stride = max(stride * H // 256, 4)
-            use_win = (
-                window % 4 == 0 and stride % 4 == 0 and 0 < window < H
-                and (H - window) % stride == 0 and (W - window) % stride == 0
-            )
-        if use_win:
+            window, stride = plan
             ir, ic, onehot, n_r, n_c = window_origin(
                 point_flat, (H, W), window, stride
             )

@@ -1,6 +1,8 @@
 """ReSeg: UNet backbone + SE semantic head + instance decoder (port of
-``tpuseg/models/reseg.py``): the inference modes ``semantic`` and
-``infer_prep``, and the ``loss`` mode of training and validation.
+``tpuseg/models/reseg.py``): the inference modes ``semantic``,
+``infer_prep``, ``density`` and ``embed``, the ``loss`` mode of training
+and validation, and the ``debug`` mode of the training loop's image dumps
+(one method each).
 
 Images arrive NCHW (the 21 standardised channels); ``to_inference``
 prepares a model for a compute dtype: it folds the decoder's eval BNs from
@@ -220,3 +222,52 @@ class ReSeg(nn.Module):
                                 device=images.device)
         score, partials = self.decoder.prep(x_enc, sem_mask, skips)
         return sem_probs, sem_mask, budget, score, partials
+
+    @torch.no_grad()
+    def density(self, images) -> torch.Tensor:
+        """The density head's map (B, 1, H/4, W/4) float32, scaled by
+        ``DENSITY_SCALE`` (backbone and head only)."""
+        if not self.cfg.model.use_density_head:
+            raise ValueError("density mode: the configuration has no "
+                             "density head")
+        return self.density_head(self.base(images.to(self.dtype))[1])
+
+    @torch.no_grad()
+    def embed(self, images):
+        """Per-pixel instance embeddings for clustering: (sem_probs
+        (B, 2, H, W), x_enc (B, d_model, H, W), n_est (B,) int32), the
+        count estimate from the density head, else the count head's
+        argmax, else 16."""
+        cfg = self.cfg
+        x_dec, skips, sem_logits = self._backbone(images)
+        sem_probs = torch.softmax(sem_logits, dim=1)
+        x_enc = self.ins_stem(x_dec)
+        if cfg.model.use_density_head:
+            n_est = density_count(self.density_head(skips))
+        elif cfg.model.use_count_head:
+            n_est = self.count_head(skips[-1]).argmax(dim=-1).to(torch.int32)
+        else:
+            n_est = torch.full((images.shape[0],), 16, dtype=torch.int32,
+                               device=images.device)
+        return sem_probs, x_enc, n_est
+
+    @torch.no_grad()
+    def debug(self, images, sem_onehot, ins_target):
+        """The training loop's single-glimpse debug forward in eval mode
+        (``InstanceDecoder.debug`` on the GT semantic mask).  Takes the
+        ``loss`` mode's NCHW inputs and returns the JAX package's layout,
+        float32: preds / targets per level (B, h, w, 2) / (B, h, w, 1),
+        alpha (B, H*W), pro and sem_mask (B, H, W, 1), point (B,)."""
+        x_dec, skips, _ = self._backbone(images)
+        x_enc = self.ins_stem(x_dec)
+        sem_mask = sem_onehot.argmax(dim=1, keepdim=True).to(torch.float32)
+        out = self.decoder.debug(x_enc, sem_mask, ins_target, skips)
+        nhwc = lambda t: t.permute(0, 2, 3, 1).float()  # noqa: E731
+        return {
+            "preds": [nhwc(p) for p in out["preds"]],
+            "targets": [nhwc(t) for t in out["targets"]],
+            "alpha": out["alpha"].float(),
+            "pro": nhwc(out["pro"]),
+            "point": out["point"],
+            "sem_mask": nhwc(sem_mask),
+        }

@@ -2,7 +2,9 @@
 
 Per epoch: train minibatches -> aggregate metrics -> validation pass ->
 plateau LR step on the validation cost -> best-val checkpoint keyed on
-``ins_dice_loss`` -> CSV/jsonl logging.
+``ins_dice_loss`` -> CSV/jsonl logging.  With ``debug_dir`` the loop
+writes the debug images of one single-glimpse forward every
+``debug_every`` train steps.
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ from tpuseg_torch.configs import Config
 from tpuseg_torch.runtime.checkpoint import save_checkpoint
 from tpuseg_torch.runtime.metrics_log import MetricLogger
 from tpuseg_torch.runtime.state import TrainState
-from tpuseg_torch.runtime.train import make_eval_step, make_train_step
+from tpuseg_torch.runtime.train import (
+    make_debug_step, make_eval_step, make_train_step,
+)
 
 
 def _aggregate(metric_list) -> Dict[str, float]:
@@ -29,6 +33,21 @@ def _aggregate(metric_list) -> Dict[str, float]:
         k: float(torch.stack([m[k].float() for m in metric_list]).mean())
         for k in metric_list[0]
     }
+
+
+def _dump_debug(debug_step, state, batch, out_dir: str) -> None:
+    """The single-glimpse debug forward on ``batch``, its images for
+    sample 0 written to ``out_dir`` (``utils/debug_images.py``)."""
+    from tpuseg_torch.utils.debug_images import dump_pyramid_debug
+
+    dbg = debug_step(state, batch)
+    host = lambda t: t.detach().float().cpu().numpy()  # noqa: E731
+    dump_pyramid_debug(
+        out_dir, [host(p) for p in dbg["preds"]],
+        [host(t) for t in dbg["targets"]], host(dbg["pro"]),
+        host(dbg["sem_mask"]), alpha=host(dbg["alpha"]),
+        point=int(dbg["point"][0]),
+    )
 
 
 def fit(
@@ -45,6 +64,7 @@ def fit(
     live: bool = False,
     tensorboard: bool = False,
     debug_dir: Optional[str] = None,
+    debug_every: int = 40,
     device_aug: bool = False,
     dtype: Optional[torch.dtype] = None,
 ) -> TrainState:
@@ -53,14 +73,13 @@ def fit(
     Runs on the device of ``state`` (``create_train_state`` put the model
     there).  ``generator``: the random stream of the run, on that device;
     seeded from ``cfg.train.seed`` when None.  ``dtype=torch.bfloat16``
-    runs the model under autocast.  Data-parallel meshes and the debug
-    image dumps are later slices of the port."""
+    runs the model under autocast.  ``debug_dir``: after train steps 1,
+    1 + ``debug_every``, ... of each epoch, the debug images of that step's
+    batch go to ``<debug_dir>/ep<epoch:03d>_it<step:05d>``.  Data-parallel
+    meshes are a later slice of the port."""
     if mesh is not None:
         raise NotImplementedError(
             "data-parallel fit (mesh) is a later slice of the port")
-    if debug_dir is not None:
-        raise NotImplementedError(
-            "the debug mode and its image dumps are a later slice of the port")
     n_epochs = n_epochs or cfg.train.n_epochs
     if generator is None:
         generator = torch.Generator(device=state.device)
@@ -68,6 +87,7 @@ def fit(
     train_step = make_train_step(cfg, model, train_cnn=cfg.train.train_cnn,
                                  device_aug=device_aug, dtype=dtype)
     eval_step = make_eval_step(cfg, model, dtype=dtype)
+    debug_step = make_debug_step(cfg, model, dtype=dtype) if debug_dir else None
     logger = MetricLogger(run_dir, live=live, tensorboard=tensorboard)
     best_val = np.inf
     val_key = "ins_dice_loss" if cfg.model.use_instance_segmentation else (
@@ -80,6 +100,10 @@ def fit(
         for batch in train_batches(epoch):
             state, m = train_step(state, batch, generator)
             train_metrics.append(m)
+            it = len(train_metrics)
+            if debug_step is not None and (it - 1) % debug_every == 0:
+                _dump_debug(debug_step, state, batch, os.path.join(
+                    debug_dir, f"ep{epoch:03d}_it{it:05d}"))
             if log_every and len(train_metrics) % log_every == 0:
                 print(f"epoch {epoch} it {len(train_metrics)}: "
                       f"cost={float(m['cost']):.4f}")

@@ -172,6 +172,24 @@ def make_train_step(cfg: Config, model, train_cnn: bool = True,
     return train_step
 
 
+def make_debug_step(cfg: Config, model, dtype: Optional[torch.dtype] = None):
+    """Returns ``debug_step(state, batch)``: the single-glimpse debug
+    forward (``ReSeg.debug``, eval mode, no gradients, under the step's
+    autocast) whose outputs ``fit`` writes as debug images.  The dict
+    holds the JAX package's layout (``ReSeg.debug``)."""
+    del cfg  # the JAX signature
+
+    def debug_step(state: TrainState, batch):
+        if state.model is not model:
+            raise ValueError("debug_step: the state holds another model")
+        images, sem, ins, _ = model_inputs(batch, state.device)
+        model.eval()
+        with torch.no_grad(), _autocast(state.device, dtype):
+            return model.debug(images, sem, ins)
+
+    return debug_step
+
+
 def make_eval_step(cfg: Config, model, dtype: Optional[torch.dtype] = None):
     """Returns ``eval_step(state, batch, generator) -> metrics`` (no state
     update: eval mode, no gradients)."""

@@ -3,8 +3,8 @@
 ``read_msgpack`` decodes the msgpack files ``flax.serialization`` writes
 (``assets/synthetic_ckpt.msgpack``): nested string-keyed maps whose leaves
 are ext type 1 (``_MsgpackExtType.ndarray``), each payload itself a
-msgpack ``(shape, dtype_name, raw_bytes)`` triple; ext type 3 (numpy
-scalar, ``(dtype_name, raw_bytes)``) is read too.  Returns the same tree
+msgpack ``(shape, dtype_name, raw_bytes)`` triple; ext type 3 (a numpy
+scalar, the same triple of its 0-d array) is read too.  Returns the same tree
 of numpy arrays that ``flax.serialization.msgpack_restore`` does.
 
 Also the CLI helpers the inference path needs from
@@ -104,13 +104,11 @@ class _Reader:
     def _ext(self, n: int):
         typ = self.unpack(">b")
         payload = bytes(self.take(n))
-        if typ == _EXT_NDARRAY:
+        if typ in (_EXT_NDARRAY, _EXT_NPSCALAR):
             shape, dtype, raw = _Reader(payload).value()
             arr = np.frombuffer(raw, dtype=np.dtype(dtype))
-            return arr.reshape(tuple(shape)).copy()
-        if typ == _EXT_NPSCALAR:
-            dtype, raw = _Reader(payload).value()
-            return np.frombuffer(raw, dtype=np.dtype(dtype))[0]
+            arr = arr.reshape(tuple(shape)).copy()
+            return arr[()] if typ == _EXT_NPSCALAR else arr
         raise ValueError(f"unsupported msgpack ext type {typ}")
 
 
