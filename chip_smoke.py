@@ -101,10 +101,11 @@ Builds the port's CUDA kernels (``ir_chain``, ``masked_softmax``,
     on the card vs the CPU's plain path at the A4 bucket, B=2 (counts
     equal, >= 99.9% of id-map pixels);
 15. runs ``python -m tpuseg_torch.cli.pred`` on one eval_hard64 image,
-    semantic and ``--instances`` (count and >= 99.9% of the id map equal to
-    phase 10's f32 ``pred_list``), then ``pred_list --staged --f32`` and
-    ``--bucketed --f32`` on eval_hard64, each equal to phase 10's f32
-    artifacts on 64/64 images;
+    semantic and ``--instances`` (count equal and >= 99.9% of the id map
+    and fg mask equal to the CPU's plain path with the CLI's settings:
+    f32, batch 1, the config's stopping rule), then ``pred_list --staged
+    --f32`` and ``--bucketed --f32`` on eval_hard64, each equal to phase
+    10's f32 artifacts on 64/64 images;
 16. runs ``predict_cluster`` on one image: ids in 0..n, background 0;
 17. holds the ``debug`` mode in f32 on the card to the CPU (glimpse points
     and pooled targets equal, alpha, score and logits within 1e-3 of their
@@ -1575,7 +1576,7 @@ def phase_bucket_chains(cfg, model, dev, smi):
                     f"{tol} * max|y| {scale:.3e}")
             iters = max(3, min(30, int(2e8 // (n * h * w * c))))
             k_ms = cuda_ms(lambda: ir_chain(x, s, *params), iters)
-            dev_ms = kernel_device_ms(lambda: ir_chain(x, s, *params), 2,
+            dev_ms = kernel_device_ms(lambda: ir_chain(x, s, *params), 3,
                                       IR_KERNEL_NAME[name], launches=4)
             b_ms, o_ms = chain_bound(n, h, w, c, name, s is not None)
             rows.append({
@@ -1650,17 +1651,25 @@ def phase_bucketed(cfg, model, dev, stop, root, smi):
     from tpuseg_torch.kernels.ir_chain import ir_chain
     from tpuseg_torch.runtime.predict import Predictor
 
+    from PIL import Image
+
     t0 = time.perf_counter()
     paths, gt = write_cvppp_scenes(root, seed=31)
     log(f"  bucketed: wrote {len(paths)} scenes at the CVPPP 2017 sizes in "
         f"{time.perf_counter() - t0:.1f} s")
+    # the host's share of a pass: the PNG decodes alone
+    t0 = time.perf_counter()
+    for q in paths:
+        np.array(Image.open(q).convert("RGB"))
+    png_s = time.perf_counter() - t0
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
         p = Predictor(cfg, copy.deepcopy(model), batch_size=BUCKET_B,
                       device=dev, dtype=dtype, stop_params=stop)
-        for fn in (p.predict_paths_bucketed, p.predict_paths):  # warm-up
-            list(fn(paths))
+        with_fixed = dtype == torch.bfloat16  # fixed-256 beside bf16 only
+        for fn in (p.predict_paths_bucketed, p.predict_paths)[:1 + with_fixed]:
+            list(fn(paths))  # warm-up: cuDNN plans per canvas, allocator
         reset_counts()
         p.rounds_run = 0
         torch.cuda.synchronize()
@@ -1681,28 +1690,37 @@ def phase_bucketed(cfg, model, dev, stop, root, smi):
                 raise AssertionError(
                     f"bucketed {name}: {os.path.basename(r['path'])} masks "
                     f"{r['ins_mask'].shape}, not its native {(h, w)}")
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        fixed = list(p.predict_paths(paths))
-        torch.cuda.synchronize()
-        dt_f = time.perf_counter() - t
-        q_b, q_f = scores(res, gt, dev), scores(fixed, gt, dev)
-        if not np.isfinite(q_b + q_f).all():
-            raise AssertionError(f"bucketed {name}: non-finite metrics")
+        q_b = scores(res, gt, dev)
         out[name] = {
             "bucketed": {"sbd": q_b[0], "abs_dic": q_b[1], "fg_dice": q_b[2],
                          "img_per_s": len(paths) / dt_b},
-            "fixed_256": {"sbd": q_f[0], "abs_dic": q_f[1], "fg_dice": q_f[2],
-                          "img_per_s": len(paths) / dt_f},
             "ir_chain_launches": launches, "rounds": rounds,
+            "png_decode_s": png_s,
         }
+        fixed_txt = ""
+        if with_fixed:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fixed = list(p.predict_paths(paths))
+            torch.cuda.synchronize()
+            dt_f = time.perf_counter() - t
+            q_f = scores(fixed, gt, dev)
+            out[name]["fixed_256"] = {"sbd": q_f[0], "abs_dic": q_f[1],
+                                      "fg_dice": q_f[2],
+                                      "img_per_s": len(paths) / dt_f}
+            fixed_txt = (f"; fixed 256: SBD {q_f[0]:.4f} |DiC| {q_f[1]:.4f} "
+                         f"FG dice {q_f[2]:.4f} at {len(paths) / dt_f:.2f} "
+                         "img/s")
+            q_b = q_b + q_f
+        if not np.isfinite(q_b).all():
+            raise AssertionError(f"bucketed {name}: non-finite metrics")
         log(f"  bucketed {name} ({len(paths)} scenes: "
             f"{', '.join(f'{k} x{v}' for k, v in CVPPP_COUNTS.items())}): SBD "
             f"{q_b[0]:.4f} |DiC| {q_b[1]:.4f} FG dice {q_b[2]:.4f} at "
             f"{len(paths) / dt_b:.2f} img/s, {launches} ir_chain launches over"
-            f" {rounds} rounds; fixed 256: SBD {q_f[0]:.4f} |DiC| "
-            f"{q_f[1]:.4f} FG dice {q_f[2]:.4f} at {len(paths) / dt_f:.2f} "
-            f"img/s (both with PNG reads and resizes) [{smi}]")
+            f" {rounds} rounds{fixed_txt} (PNG reads, resizes and mask "
+            f"upsampling included; decoding the PNGs alone takes "
+            f"{png_s:.2f} s of the bucketed pass's {dt_b:.2f} s) [{smi}]")
         del p
         torch.cuda.empty_cache()
 
@@ -1730,16 +1748,19 @@ def phase_bucketed(cfg, model, dev, stop, root, smi):
     return out
 
 
-def phase_pred_cli(root, eval_lst, smi):
+def phase_pred_cli(cfg, model, root, eval_lst, smi):
     """python -m tpuseg_torch.cli.pred on one eval_hard64 image (semantic
-    and --instances), held to phase 11's f32 pred_list output; pred_list
-    --staged and --bucketed through the CLI on eval_hard64, f32, held to
-    phase 11's f32 artifacts."""
+    and --instances), held to the CPU's plain path with the CLI's own
+    settings (f32, batch 1, the config's stopping rule: the JAX CLI loads
+    no calibrated stop_params, unlike pred_list); pred_list --staged and
+    --bucketed through the CLI on eval_hard64, f32, held to phase 11's f32
+    artifacts."""
     import torch
     from PIL import Image
 
     from tpuseg_torch.cli import pred_list
     from tpuseg_torch.kernels.ir_chain import ir_chain
+    from tpuseg_torch.runtime.predict import Predictor
 
     here = os.path.dirname(os.path.abspath(__file__))
     ckpt = os.path.join(here, "assets", "synthetic_ckpt.msgpack")
@@ -1764,21 +1785,33 @@ def phase_pred_cli(root, eval_lst, smi):
     base = os.path.join(root, "pred_instances", name)
     count = int(np.load(base + "-n_objects.npy"))
     ins = np.asarray(Image.open(base + "-ins_mask.png"))
-    ref = np.asarray(Image.open(os.path.join(f32_dir, name,
-                                             name + "-ins_mask.png")))
-    agree = float(np.mean(ins == ref))
-    if count != want[name][0] or not agree >= 0.999:
-        raise AssertionError(
-            f"pred --instances on {name}: count {count} (pred_list f32 "
-            f"{want[name][0]}), id-map agreement {agree:.4%}")
     fg = np.asarray(Image.open(os.path.join(root, "pred_semantic",
-                                            name + "-fg_mask.png")))
-    out.update({"image": name, "count": count, "idmap_agreement": agree,
-                "fg_pixels": int((fg > 0).sum())})
+                                            name + "-fg_mask.png"))) > 0
+    cpu = Predictor(cfg, copy.deepcopy(model), batch_size=1, device="cpu",
+                    dtype=torch.float32)
+    ref = cpu.predict_attend(img)
+    ref_fg = cpu.predict_semantic(img)["fg_prob"] > 0.5
+    agree = float(np.mean(ins == ref["ins_mask"]))
+    fg_agree = float(np.mean(fg == ref_fg))
+    f32_ins = np.asarray(Image.open(os.path.join(f32_dir, name,
+                                                 name + "-ins_mask.png")))
+    out.update({"image": name, "count": count, "count_cpu": ref["n_objects"],
+                "idmap_agreement_cpu": agree, "fg_agreement_cpu": fg_agree,
+                "count_pred_list_f32": want[name][0],
+                "idmap_agreement_pred_list_f32": float(np.mean(
+                    ins == f32_ins))})
     log(f"  pred CLI on {name}: semantic {out['semantic_wall_s']:.1f} s, "
         f"--instances {out['instances_wall_s']:.1f} s (a process each: "
-        f"start-up, weights, f32 forward, PNG writes); count {count} = "
-        f"pred_list f32's, id-map agreement {agree:.6f} [{smi}]")
+        f"start-up, weights, f32 forward, PNG writes); card vs the CPU's "
+        f"plain path: count {count} / {ref['n_objects']}, id-map agreement "
+        f"{agree:.6f}, fg {fg_agree:.6f}; beside pred_list --f32 (calibrated"
+        f" stopping rule): count {want[name][0]}, id-map agreement "
+        f"{out['idmap_agreement_pred_list_f32']:.6f} [{smi}]")
+    if count != ref["n_objects"] or not (agree >= 0.999
+                                         and fg_agree >= 0.999):
+        raise AssertionError(
+            f"pred on {name}: count {count} (CPU {ref['n_objects']}), "
+            f"id-map agreement {agree:.4%}, fg {fg_agree:.4%}")
 
     made = _recording_predictors()
     for mode in ("staged", "bucketed"):
@@ -2206,7 +2239,7 @@ def main() -> int:
 
         # -- phase 16: the pred CLI, pred_list --staged / --bucketed
         t0 = time.perf_counter()
-        pred_cli = phase_pred_cli(work, eval_lst, smi)
+        pred_cli = phase_pred_cli(cfg, model, work, eval_lst, smi)
         log(f"phase pred-cli: {time.perf_counter() - t0:.1f} s")
 
         # -- phase 17: predict_cluster on the card

@@ -86,10 +86,10 @@ def _predictors(variables, batch_size=1, **model_kw):
 
 def _inputs(paths):
     """(JAX standardised NHWC, the port's NCHW) of the resized images."""
+    from PIL import Image
+
     from tpuseg.data.colorspace import image_ex_standardize as jstd
     from tpuseg_torch.data.colorspace import image_ex_standardize as tstd
-
-    from PIL import Image
 
     imgs = np.stack([np.asarray(Image.open(p).convert("RGB").resize(
         (64, 64), Image.BILINEAR)) for p in paths]).astype(np.uint8)

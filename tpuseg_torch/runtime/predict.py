@@ -174,55 +174,21 @@ class Predictor:
         self.rounds_run += rounds
         return idmap.to(torch.uint8), counts.to(torch.int32), carry
 
-    def _infer_staged(self, images_u8: torch.Tensor):
-        return self._extract_from_prep(self._infer_prep(images_u8))
-
-    def _extract_from_prep(self, prep):
-        """Stage B driver for one batch: read the budget once, run the
-        rounds it asks for, then continue in 2-round chunks (one ``done``
-        readback each) until every sample is done or the static round
-        budget is spent.  The outputs are the monolithic dispatch's.
-        -> (fg, idmap, counts)."""
-        fg, _, budget, _, _ = prep
-        need = int(budget.max())  # the one budget readback
-        self.host_syncs += 1
-        n = min(max(-(-need // self.group), 1), self.max_rounds)
-        carry, used = None, 0
-        while True:
-            step_n = min(n, self.max_rounds - used)
-            idmap, counts, carry = self._rounds(step_n, prep, carry)
-            used += step_n
-            if used >= self.max_rounds:
-                break
-            self.host_syncs += 1
-            if bool(carry["done"].all()):
-                break
-            n = 2
-        return fg, idmap, counts
-
-    def predict_batches_staged(self, xs: Sequence, packed: bool = False):
-        """The staged dispatch over a window of batches (each (B, H, W, 3)
-        uint8): every batch's prep, one readback of all the budgets, each
-        batch's first chunk (its rounds plus ``staged_margin``), then
-        2-round chunks for the batches that still have a live sample, with
-        one readback of the all-done flags per chunk for the whole window.
-        Outputs equal the monolithic dispatch's.
-
-        Returns a list of (fg, idmap, counts) device tensors; with
-        ``packed`` a list of (packed uint8, counts) pairs."""
-        preps = [self._infer_prep(self._to_device(x)) for x in xs]
+    def _extract_staged(self, preps, margin: int):
+        """Stage B over a window of prepped batches: one readback of all
+        the budgets; each batch's first chunk runs the rounds its budget
+        asks for plus ``margin``; then 2-round chunks for the batches that
+        still have a live sample, with one readback of their all-done flags
+        per chunk, until every sample is done or the static round budget is
+        spent.  The outputs are the monolithic dispatch's.
+        -> [(fg, idmap, counts)] per batch."""
         budgets = torch.stack([pr[2] for pr in preps]).cpu()  # one readback
         self.host_syncs += 1
-        states = []
-        for pr, bud in zip(preps, budgets):
-            need = int(bud.max())
-            states.append({
-                "prep": pr, "carry": None, "used": 0, "out": None,
-                # a few extra rounds in the first chunk cost less than a
-                # continuation's readback when a glimpse or two miss
-                "n": min(max(-(-need // self.group) + int(self.staged_margin),
-                             1), self.max_rounds),
-            })
+        states = [{
+            "prep": pr, "carry": None, "used": 0, "out": None,
+            "n": min(max(-(-int(bud.max()) // self.group) + margin, 1),
+                     self.max_rounds),
+        } for pr, bud in zip(preps, budgets)]
         live = list(range(len(states)))
         while live:
             for i in live:
@@ -240,10 +206,27 @@ class Predictor:
                                  for i in still]).cpu()  # one readback
             self.host_syncs += 1
             live = [i for i, d in zip(still, dones.tolist()) if not d]
-        if packed:
-            return [(pack_masks(st["out"][0], st["out"][1]), st["out"][2])
-                    for st in states]
         return [st["out"] for st in states]
+
+    def _infer_staged(self, images_u8: torch.Tensor):
+        """One batch through the staged dispatch -> (fg, idmap, counts)."""
+        return self._extract_staged([self._infer_prep(images_u8)], 0)[0]
+
+    def predict_batches_staged(self, xs: Sequence, packed: bool = False):
+        """The staged dispatch over a window of batches (each (B, H, W, 3)
+        uint8): every batch's prep, then :meth:`_extract_staged` with
+        ``staged_margin`` extra rounds in each first chunk (cheaper than a
+        continuation's readback when a glimpse or two miss).  Outputs equal
+        the monolithic dispatch's.
+
+        Returns a list of (fg, idmap, counts) device tensors; with
+        ``packed`` a list of (packed uint8, counts) pairs."""
+        outs = self._extract_staged(
+            [self._infer_prep(self._to_device(x)) for x in xs],
+            int(self.staged_margin))
+        if packed:
+            return [(pack_masks(fg, idmap), counts) for fg, idmap, counts in outs]
+        return outs
 
     # ------------------------------------------------------------------
     def _to_device(self, images_u8) -> torch.Tensor:
