@@ -87,7 +87,7 @@ Builds the port's CUDA kernels (``ir_chain``, ``masked_softmax``,
     must be the ones loaded) over 8 images and ``evaluate``;
 12. holds the staged extraction dispatch (one window of 3's 8 batches)
     to the monolithic predictor in bf16 and f32: fg, id maps and counts
-    bit-equal; img/s of both alternated, 3 passes each; the rounds, host
+    bit-equal; img/s of both alternated, 2 passes each; the rounds, host
     syncs and ``ir_chain`` launches (20 a round) of one pass each;
 13. holds ``ir_chain`` against its plain version (phase 2's gates) at every
     level shape that the decodes of the CVPPP 2017 shape buckets make
@@ -111,7 +111,34 @@ Builds the port's CUDA kernels (``ir_chain``, ``masked_softmax``,
     and pooled targets equal, alpha, score and logits within 1e-3 of their
     max) with 1 ``masked_softmax`` and 20 ``ir_chain`` launches a debug
     forward, then ``fit(debug_dir=...)`` for 2 steps at B=8 bf16: two dumps
-    of the JAX writer's 18 files, the launches counted.
+    of the JAX writer's 18 files, the launches counted;
+18. drives the data-parallel ``fit`` (``parallel.run_ranks``): 2 gloo
+    ranks both on the card against one process, f32 (TF32 off),
+    deterministic glimpses, no dropout, SGD, global B=4, 2 steps + 1
+    validation batch from equal weights: parameters, BN statistics and the
+    REINFORCE baseline within rtol 5e-3 / atol 1.6e-2 of the one process,
+    the ranks bit-identical; then 1 rank over NCCL, equal to the one
+    process bit for bit where the one process repeats itself bit for bit
+    (else within that tolerance); then timed: bf16, sampling and dropout
+    on, global B=8 (2 x 4), 10 steps after 2 warm-up, steps/s beside item
+    6's one process, the ms a step's all-reduces take replayed alone, and
+    each rank's ``masked_softmax`` launches (1 forward, ``BACKWARD_LAUNCHES``
+    backward a step);
+19. drives the mesh predictor (``Predictor(use_mesh=True, n_devices=2)``:
+    two replicas on the card, each batch split) over item 3's 256 images,
+    B=32: f32 counts equal to the one-replica predictor's and >= 99.9% of
+    id-map pixels, 20 ``ir_chain`` launches a round of each replica; bf16
+    img/s of both, alternated;
+20. drives ``cli.train --ndevices 2 --live --tensorboard --bf16`` for 2
+    epochs on item 11's records: one run directory, a checkpoint for each
+    improving epoch and no other, the live rows on stdout, TensorBoard
+    events or the writer's skip line (which is printed), finite costs,
+    each rank's launches counted; then ``pred_list --ndevices 2 --f32`` on
+    eval_hard64 (its artifacts equal to item 10's f32 on 64/64 images)
+    and ``evaluate``;
+21. runs one of item 3's batches inside ``utils.tracing.trace_context``,
+    a ``StepTimer`` around it: a Chrome trace with the card's kernels is
+    written, one time recorded.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises: the
@@ -1472,7 +1499,7 @@ def phase_staged(cfg, model, dev, stop, batches, smi):
         for fn in run.values():  # warm-up: cuDNN plans, allocator
             fn()
         res, secs, counts = {}, {k: [] for k in run}, {}
-        for i, kind in enumerate(["monolithic", "staged"] * 3):
+        for i, kind in enumerate(["monolithic", "staged"] * 2):
             p = preds[kind]
             if i < 2:
                 reset_counts()
@@ -1976,6 +2003,397 @@ def phase_debug(cfg, model, dev, root, smi):
             "fit_launches": counts, "fit_seconds": fit_s}
 
 
+DP_TOL = dict(rtol=5e-3, atol=1.6e-2)  # tests/test_fit_mesh.py's
+
+
+def _state_diff(a, b):
+    """max |a - b| over the floating tensors of two model states, and the
+    keys outside rtol/atol of ``DP_TOL``."""
+    import torch
+
+    worst, bad = 0.0, []
+    for k, v in a.items():
+        w = b[k]
+        if not v.is_floating_point():
+            if not torch.equal(v, w):
+                bad.append(k)
+            continue
+        d = (v.double() - w.double()).abs()
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+        if not torch.allclose(v, w, **DP_TOL):
+            bad.append(k)
+    return worst, bad
+
+
+def _states_equal(a, b):
+    import torch
+
+    return a.keys() == b.keys() and all(torch.equal(v, b[k])
+                                        for k, v in a.items())
+
+
+def phase_dp_fit(cfg, model, dev, train, smi):
+    """Data-parallel fit over 2 gloo ranks on the card against one process
+    (f32), 1 NCCL rank, then the timed bf16 data-parallel steps."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from tpuseg_torch.data.synthetic import make_batch
+    from tpuseg_torch.kernels.masked_softmax import (
+        BACKWARD_LAUNCHES, FORWARD_LAUNCHES,
+    )
+    from tpuseg_torch.parallel import make_mesh, run_ranks, tasks
+
+    sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    det = dataclasses.replace(
+        cfg, decoder=dataclasses.replace(cfg.decoder, deterministic_glimpse=True,
+                                         drop_rate=0.0),
+        train=dataclasses.replace(cfg.train, optimizer="SGD",
+                                  learning_rate=0.01, batch_size=4))
+    rng = np.random.default_rng(31)
+    batches = [make_batch(rng, 4, 256, 256, cfg.data.max_n_objects, hard=True)
+               for _ in range(3)]
+    train_b, val_b = batches[:2], batches[2:]
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    f32 = torch.float32
+
+    def args(name):
+        return (det, sd, train_b, val_b, os.path.join(root, name), 1, f32)
+
+    out = {}
+    t = time.perf_counter()
+    one = tasks.fit_run(make_mesh(1, dev), *args("one"))
+    again = tasks.fit_run(make_mesh(1, dev), *args("again"))
+    out["one_process_s"] = (time.perf_counter() - t) / 2
+    repeats = _states_equal(one["model"], again["model"])
+    # the timed run's batches: bf16, sampling + dropout (phase 7's
+    # configuration); both runs in one spawn of the 2 ranks
+    B, n_warm, n_steps = 8, 2, 10
+    rng = np.random.default_rng(13)
+    steps_b = [make_batch(rng, B, 256, 256, cfg.data.max_n_objects, hard=True)
+               for _ in range(n_warm + n_steps)]
+    t = time.perf_counter()
+    runs = run_ranks(tasks.in_turn, 2, ([
+        (tasks.fit_run, args("two")),
+        (tasks.train_steps, (cfg, sd, steps_b, torch.bfloat16, n_warm)),
+    ],), device="cuda", backend="gloo", timeout=600)
+    out["two_ranks_wall_s"] = time.perf_counter() - t
+    two, timed = [r[0] for r in runs], [r[1] for r in runs]
+    worst, bad = _state_diff(two[0]["model"], one["model"])
+    identical = _states_equal(two[0]["model"], two[1]["model"])
+    nccl = run_ranks(tasks.fit_run, 1, args("nccl"), device="cuda",
+                     backend="nccl", timeout=600)[0]
+    nccl_equal = _states_equal(nccl["model"], one["model"])
+    nccl_worst, nccl_bad = _state_diff(nccl["model"], one["model"])
+    rerun_worst = _state_diff(again["model"], one["model"])[0]
+    out.update({
+        "f32_max_abs_diff_vs_one": worst, "ranks_bit_identical": identical,
+        "one_process_repeats_bit_for_bit": repeats,
+        "one_process_rerun_max_abs_diff": rerun_worst,
+        "nccl_one_rank_bit_equal": nccl_equal,
+        "nccl_one_rank_max_abs_diff": nccl_worst,
+        "steps": [r["step"] for r in two],
+        "launches_f32": [r["launches"] for r in two],
+    })
+    log(f"  dp-fit f32 (256x256 full width, global B=4 = 2 gloo ranks x 2 on "
+        f"one card, 2 SGD steps + 1 validation batch, deterministic "
+        f"glimpses, TF32 off): max |two ranks - one process| {worst:.3e} "
+        f"over parameters, BN statistics and baseline, {len(bad)} tensors "
+        f"outside rtol 5e-3 / atol 1.6e-2; ranks bit-identical {identical}; "
+        f"one process rerun: bit-equal {repeats} (max |diff| "
+        f"{rerun_worst:.3e}); 1 NCCL rank vs one process: bit-equal "
+        f"{nccl_equal}, max |diff| {nccl_worst:.3e}; spawn + 2 ranks (this "
+        f"fit and the timed steps below) {out['two_ranks_wall_s']:.1f} s "
+        f"[{smi}]")
+    if bad or not identical or [r["step"] for r in two] != [2, 2]:
+        raise AssertionError(
+            f"dp-fit f32: steps {[r['step'] for r in two]}, ranks identical "
+            f"{identical}, outside the tolerance: {bad[:8]}")
+    if (repeats and not nccl_equal) or nccl_bad:
+        raise AssertionError(
+            f"dp-fit: 1 NCCL rank differs from one process (bit-equal "
+            f"{nccl_equal}, outside the tolerance {nccl_bad[:8]})")
+    for r, launches in enumerate(out["launches_f32"]):
+        if (launches["masked_softmax_forward"] != FORWARD_LAUNCHES * 3
+                or launches["masked_softmax_backward"]
+                != BACKWARD_LAUNCHES * 2):
+            raise AssertionError(f"dp-fit rank {r} launches {launches}")
+
+    # -- timed: bf16, sampling + dropout
+    r0 = timed[0]
+    sps = r0["steps"] / r0["seconds"]
+    costs = [m["cost"] for r in timed for m in r["metrics"]]
+    launches = [r["launches"] for r in timed]
+    out.update({
+        "steps_per_s_bf16": sps, "ms_per_step_bf16": 1e3 / sps,
+        "one_process_steps_per_s_bf16": train["steps_per_s"],
+        "collectives_per_step": r0["collectives_per_step"],
+        "collective_ms_per_step": r0["collective_ms_per_step"],
+        "launches_bf16": launches,
+    })
+    log(f"  dp-fit bf16 timed (global B={B} = 2 gloo ranks x 4 on one card, "
+        f"sampling + dropout, {n_steps} steps after {n_warm}): "
+        f"{sps:.3f} steps/s ({1e3 / sps:.1f} ms/step) against phase 7's one "
+        f"process at B={B} {train['steps_per_s']:.3f} steps/s; "
+        f"{r0['collectives_per_step']:.0f} all-reduces a step take "
+        f"{r0['collective_ms_per_step']:.1f} ms replayed alone; "
+        f"masked_softmax launches per rank {launches} [{smi}]")
+    if not np.isfinite(costs).all():
+        raise AssertionError(f"dp-fit bf16: non-finite costs {costs}")
+    for r, lc in enumerate(launches):
+        if (lc["masked_softmax_forward"] != FORWARD_LAUNCHES * n_steps
+                or lc["masked_softmax_backward"]
+                != BACKWARD_LAUNCHES * n_steps):
+            raise AssertionError(f"dp-fit bf16 rank {r} launches {lc}")
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase_mesh_predict(cfg, model, dev, stop, batches, smi):
+    """``Predictor(use_mesh=True, n_devices=2)`` against one replica on
+    phase 4's images: f32 outputs, launches a replica, bf16 img/s."""
+    import torch
+
+    from tpuseg_torch.kernels.ir_chain import ir_chain
+    from tpuseg_torch.runtime.predict import Predictor, unpack_masks
+
+    def make(dtype, mesh):
+        kw = dict(use_mesh=True, n_devices=2) if mesh else {}
+        return Predictor(cfg, copy.deepcopy(model), batch_size=32, device=dev,
+                         dtype=dtype, stop_params=stop, **kw)
+
+    def run(p):
+        outs = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for b in batches:
+            packed, counts = p.predict_batch_packed(b)
+            outs.append((packed.cpu().numpy(), counts.cpu().numpy()))
+        torch.cuda.synchronize()
+        return outs, time.perf_counter() - t
+
+    n_img = sum(len(b) for b in batches)
+    one32, two32 = make(torch.float32, False), make(torch.float32, True)
+    if not (two32.batch_size == 32 and len(two32.replicas) == 2 and all(
+            r.device.type == torch.device(dev).type
+            for r in two32.replicas)):
+        raise AssertionError("mesh predictor: wrong replicas or batch size")
+    run(two32)  # warm-up (cuDNN plans at the replicas' batch of 16)
+    want, _ = run(one32)
+    ir_chain.launches = 0
+    for r in two32.replicas:
+        r.rounds_run = 0
+    got, _ = run(two32)
+    launches = ir_chain.launches
+    rounds = [r.rounds_run for r in two32.replicas]
+    fg0, id0 = map(np.concatenate, zip(*[unpack_masks(o[0]) for o in want]))
+    fg1, id1 = map(np.concatenate, zip(*[unpack_masks(o[0]) for o in got]))
+    n0 = np.concatenate([o[1] for o in want])
+    n1 = np.concatenate([o[1] for o in got])
+    agree = float(np.mean(id0 == id1))
+    del one32, two32
+    one16, two16 = make(torch.bfloat16, False), make(torch.bfloat16, True)
+    run(one16)
+    run(two16)
+    times = {"one": [], "mesh": []}
+    for name, p in (("mesh", two16), ("one", one16), ("one", one16),
+                    ("mesh", two16)):
+        times[name].append(run(p)[1])
+    ips = {k: n_img / float(np.mean(v)) for k, v in times.items()}
+    out = {"counts_equal": bool(np.array_equal(n0, n1)),
+           "idmap_agreement": agree, "fg_equal": bool(np.array_equal(fg0, fg1)),
+           "ir_chain_launches": launches, "rounds_per_replica": rounds,
+           "img_per_s_bf16_mesh": ips["mesh"], "img_per_s_bf16_one": ips["one"]}
+    log(f"  mesh-predict f32 (2 replicas on one card, B=32 = 2 x 16, {n_img} "
+        f"images): counts equal {out['counts_equal']}, id-map agreement "
+        f"{agree:.6f}, fg equal {out['fg_equal']}; {launches} ir_chain "
+        f"launches over rounds {rounds} of the replicas; bf16 img/s mesh "
+        f"{ips['mesh']:.2f} vs one replica {ips['one']:.2f} (alternated, 2 "
+        f"passes each) [{smi}]")
+    if not out["counts_equal"] or agree < 0.999:
+        raise AssertionError(f"mesh predictor f32: {out}")
+    if launches == 0 or launches != 5 * 4 * sum(rounds) or 0 in rounds:
+        raise AssertionError(
+            f"mesh predictor: ir_chain launches {launches} != 5 x 4 x rounds "
+            f"{rounds}")
+    return out
+
+
+class _Stdout:
+    """Within the block, file descriptor 1 (this process's and every
+    child's standard output) goes to a file; ``text`` holds it after."""
+
+    def __init__(self, path):
+        self.path = path
+        self.text = ""
+
+    def __enter__(self):
+        sys.stdout.flush()
+        self._saved = os.dup(1)
+        self._file = open(self.path, "w")
+        os.dup2(self._file.fileno(), 1)
+        return self
+
+    def __exit__(self, *exc):
+        sys.stdout.flush()
+        os.dup2(self._saved, 1)
+        os.close(self._saved)
+        self._file.close()
+        with open(self.path) as f:
+            self.text = f.read()
+        sys.stdout.write(self.text)
+        sys.stdout.flush()
+
+
+def phase_dp_cli(work, eval_lst, smi):
+    """train --ndevices 2 --live --tensorboard on phase 12's records, then
+    pred_list --ndevices 2 --f32 and evaluate."""
+    import torch
+
+    from tpuseg_torch.cli import evaluate, pred_list, train
+    from tpuseg_torch.kernels.ir_chain import ir_chain
+    from tpuseg_torch.kernels.masked_softmax import (
+        BACKWARD_LAUNCHES, FORWARD_LAUNCHES,
+    )
+
+    rec = os.path.join(work, "train")
+    runs = os.path.join(work, "dp_runs")
+    epochs = 2
+    t = time.perf_counter()
+    with _Stdout(os.path.join(work, "dp_cli_stdout.txt")) as cap:
+        res = train.main([
+            "--dataset", "CVPPP", "--batchsize", "8", "--bf16",
+            "--train_data", os.path.join(rec, "train"),
+            "--val_data", os.path.join(rec, "val"), "--runs_dir", runs,
+            "--ndevices", "2", "--live", "--tensorboard",
+            "--nepochs", str(epochs)])
+    wall = time.perf_counter() - t
+    run_dir = res["run_dir"]
+    dirs = os.listdir(os.path.join(runs, "CVPPP"))
+    with open(os.path.join(run_dir, "validation.log")) as f:
+        val = [float(line.split(",")[1]) for line in f.read().split()[1:]]
+    with open(os.path.join(run_dir, "training.log")) as f:
+        costs = [float(line.split(",")[1]) for line in f.read().split()[1:]]
+    best, want_ckpt = np.inf, []
+    for e, v in enumerate(val):
+        if v <= best:
+            best = v
+            want_ckpt.append(e)
+    ckpts = sorted(int(f.split("_")[1]) for f in os.listdir(run_dir)
+                   if f.startswith("model_"))
+    tb_dir = os.path.join(run_dir, "tb")
+    tb_events = os.path.isdir(tb_dir) and any(
+        f.startswith("events") for f in os.listdir(tb_dir))
+    tb_skip = "tensorboard writer unavailable" in cap.text
+    live_rows = cap.text.count("live metrics:")
+    n_train = sum(e["steps"] for e in res["epochs"])
+    launches = res["rank_launches"]
+    out = {"run_dirs": len(dirs), "checkpoint_epochs": ckpts,
+           "improving_epochs": want_ckpt, "live_blocks": live_rows,
+           "tensorboard": "events" if tb_events else (
+               "skipped" if tb_skip else "none"),
+           "train_costs": costs, "wall_s": wall, "train_steps": n_train,
+           "rank_launches": launches}
+    log(f"  dp-cli train --ndevices 2 --live --tensorboard --bf16 ({epochs} "
+        f"epochs, global B=8 on 24 + 8 records at 530x500): {len(dirs)} run "
+        f"dir, checkpoints for epochs {ckpts} (improving {want_ckpt}), "
+        f"{live_rows} live blocks on stdout, TensorBoard "
+        f"{out['tensorboard']}, train costs {costs}, rank launches "
+        f"{launches}; {wall:.1f} s [{smi}]")
+    if len(dirs) != 1 or ckpts != want_ckpt or live_rows != 2 * epochs:
+        raise AssertionError(f"dp-cli train: {out}")
+    if tb_events == tb_skip or not any(c in cap.text for c in "▁█"):
+        raise AssertionError(f"dp-cli train: TensorBoard events {tb_events}, "
+                             f"skip line {tb_skip}, or no sparkline")
+    if len(costs) != epochs or not np.isfinite(costs).all():
+        raise AssertionError(f"dp-cli train: costs {costs}")
+    for r, lc in enumerate(launches):
+        if (lc["masked_softmax_forward"] != FORWARD_LAUNCHES * (n_train + epochs)
+                or lc["masked_softmax_backward"] != BACKWARD_LAUNCHES * n_train
+                or lc["ir_chain"] <= 0 or lc["ir_chain"] % 20):
+            raise AssertionError(f"dp-cli train rank {r} launches {lc}")
+
+    # pred_list over two replicas, f32: phase 11's f32 artifacts
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(eval_lst) as f:
+        images = [q for q in f.read().splitlines() if q]
+    names = [os.path.splitext(os.path.basename(q))[0] for q in images]
+    want = _per_image(os.path.join(work, "eval", "pred_f32"), names)
+    made = _recording_predictors()
+    d = os.path.join(work, "pred_list_ndevices2")
+    ir_chain.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pred_list.main(["--lst", eval_lst, "--model",
+                    os.path.join(here, "assets", "synthetic_ckpt.msgpack"),
+                    "--dataset", "CVPPP", "--batchsize", "16", "--f32",
+                    "--ndevices", "2", "--output", d])
+    torch.cuda.synchronize()
+    p_wall = time.perf_counter() - t
+    p_launches = ir_chain.launches
+    rounds = [r.rounds_run for r in made[-1].replicas]
+    got = _per_image(d, names)
+    same = sum(got[k] == want[k] for k in names)
+    scores = evaluate.main(["--pred_dir", d, "--dataset", "CVPPP",
+                            "--metadata", os.path.dirname(eval_lst),
+                            "--img_dir", os.path.dirname(images[0]),
+                            "--device", "cuda"])
+    out.update({"pred_list_artifacts_equal_f32": same,
+                "pred_list_ir_chain_launches": p_launches,
+                "pred_list_rounds_per_replica": rounds,
+                "pred_list_wall_s": p_wall, "sbd": scores[0],
+                "abs_dic": scores[1], "fg_dice": scores[2]})
+    log(f"  dp-cli pred_list --ndevices 2 --f32 on eval_hard64: artifacts "
+        f"(counts, id-map sha256) equal to phase 11's f32 on {same}/64; "
+        f"{p_launches} ir_chain launches over rounds {rounds}; evaluate SBD "
+        f"{scores[0]:.6f} |DiC| {scores[1]:.4f} FG {scores[2]:.6f}; wall "
+        f"{p_wall:.2f} s [{smi}]")
+    if same != 64 or len(rounds) != 2:
+        raise AssertionError(f"pred_list --ndevices 2: {same}/64 equal")
+    if p_launches == 0 or p_launches != 5 * 4 * sum(rounds):
+        raise AssertionError(
+            f"pred_list --ndevices 2: ir_chain launches {p_launches} for "
+            f"rounds {rounds}")
+    return out
+
+
+def phase_trace(cfg, model, dev, stop, batch, root, smi):
+    """One phase-4 batch inside ``trace_context`` under a ``StepTimer``."""
+    from tpuseg_torch.runtime.predict import Predictor
+    from tpuseg_torch.utils.tracing import (
+        TRACE_FILE, StepTimer, annotate, trace_context,
+    )
+
+    pred = Predictor(cfg, copy.deepcopy(model), batch_size=32, device=dev,
+                     stop_params=stop)
+    pred.predict_batch_packed(batch)  # warm-up
+    timer = StepTimer()
+    with trace_context(root):
+        with annotate("predict_batch"):
+            timer.time("batch", pred.predict_batch_packed, batch)
+    path = os.path.join(root, TRACE_FILE)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    named = any(e.get("name") == "predict_batch" for e in events)
+    rec = timer.summary().get("batch", {})
+    out = {"trace_bytes": os.path.getsize(path), "events": len(events),
+           "kernel_events": len(kernels), "annotated": named,
+           "timer_count": rec.get("count", 0),
+           "batch_ms": 1e3 * rec.get("mean_s", float("nan"))}
+    log(f"  trace: {path} ({out['trace_bytes']} bytes, {len(events)} events, "
+        f"{len(kernels)} device kernels, annotation {named}); StepTimer "
+        f"{out['timer_count']} record, {out['batch_ms']:.1f} ms for the batch "
+        f"(profiler on) [{smi}]")
+    if not kernels or not named or out["timer_count"] != 1:
+        raise AssertionError(f"trace: {out}")
+    return out
+
+
 def make_images(n, seed):
     from tpuseg_torch.data.synthetic import label_map, make_scene
 
@@ -2251,6 +2669,28 @@ def main() -> int:
         t0 = time.perf_counter()
         debug = phase_debug(cfg, model, dev, os.path.join(work, "debug"), smi)
         log(f"phase debug: {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 19: data-parallel fit over 2 ranks on the card vs one
+        # process, 1 NCCL rank, the timed data-parallel steps
+        t0 = time.perf_counter()
+        dp_fit = phase_dp_fit(cfg, model, dev, train, smi)
+        log(f"phase dp-fit: {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 20: the mesh predictor on phase 4's images
+        t0 = time.perf_counter()
+        mesh_pred = phase_mesh_predict(cfg, model, dev, stop, batches, smi)
+        log(f"phase mesh-predict: {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 21: train --ndevices 2, pred_list --ndevices 2, evaluate
+        t0 = time.perf_counter()
+        dp_cli = phase_dp_cli(work, eval_lst, smi)
+        log(f"phase dp-cli: {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 22: one inference batch under the tracing utilities
+        t0 = time.perf_counter()
+        trace = phase_trace(cfg, model, dev, stop, batches[0],
+                            os.path.join(work, "trace"), smi)
+        log(f"phase trace: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2269,7 +2709,8 @@ def main() -> int:
         "sru_stack": sru_stack, "sru_train": sru_train,
         "cli_eval": cli_eval, "cli_train": cli_train,
         "staged": staged, "bucketed": bucketed, "pred_cli": pred_cli,
-        "cluster": cluster, "debug": debug,
+        "cluster": cluster, "debug": debug, "dp_fit": dp_fit,
+        "mesh_predict": mesh_pred, "dp_cli": dp_cli, "trace": trace,
         "seconds": time.perf_counter() - t_all,
     }
     log("summary " + json.dumps(summary))
@@ -2331,6 +2772,17 @@ def main() -> int:
         "launches_debug": {
             "forward": debug["debug_forward_launches"]["ir_chain"],
             "fit_with_dumps": debug["fit_launches"]["ir_chain"]},
+        # phases 20-21: the mesh predictor's pass over the 256 images and
+        # pred_list --ndevices 2 on eval_hard64 (both f32, 2 replicas; the
+        # rounds of each replica, 20 launches a round), and the validation
+        # decodes of train --ndevices 2 (each rank's)
+        "launches_mesh_predict": mesh_pred["ir_chain_launches"],
+        "mesh_predict_rounds_per_replica": mesh_pred["rounds_per_replica"],
+        "launches_pred_list_ndevices2": dp_cli["pred_list_ir_chain_launches"],
+        "pred_list_ndevices2_rounds_per_replica":
+            dp_cli["pred_list_rounds_per_replica"],
+        "launches_train_ndevices2_validation": [
+            r["ir_chain"] for r in dp_cli["rank_launches"]],
         # per bucket level shape: ms a call (events), device ms a launch
         # (profiler) and the bound of a call, f32 and bf16
         "bucket_shapes": [{k: r[k] for k in (
@@ -2357,6 +2809,15 @@ def main() -> int:
             "forward": debug["debug_forward_launches"]["masked_softmax"],
             "fit_with_dumps": debug["fit_launches"]["forward"]
             + debug["fit_launches"]["backward"]},
+        # phases 19 and 21, each rank's forward + backward launches: the
+        # timed data-parallel steps (2 gloo ranks, 10 steps) and
+        # train --ndevices 2 (2 epochs + validation)
+        "launches_dp_fit": [r["masked_softmax_forward"]
+                            + r["masked_softmax_backward"]
+                            for r in dp_fit["launches_bf16"]],
+        "launches_train_ndevices2": [r["masked_softmax_forward"]
+                                     + r["masked_softmax_backward"]
+                                     for r in dp_cli["rank_launches"]],
         "checked": True,
         "max_abs_err": sm_p_err,
         "max_rel_err_backward": sm_de_rel,

@@ -274,26 +274,104 @@ def _train_argv(tmp_path, *extra):
             "--runs_dir", str(tmp_path / "runs"), "--device", "cpu", *extra]
 
 
-@pytest.mark.parametrize("flag", [["--ndevices", "2"], ["--live"],
-                                  ["--tensorboard"]])
-def test_train_flags_of_later_slices_raise(tmp_path, flag):
+def _records(tmp_path, n_train=4):
+    from tpuseg_torch.data.synthetic import write_synthetic_records
+
+    write_synthetic_records(str(tmp_path / "train"), n_train, seed=1,
+                            height=45, width=39)
+    write_synthetic_records(str(tmp_path / "val"), 2, seed=2, height=45,
+                            width=39)
+
+
+def _tb_scalars(run_dir: str) -> set:
+    """The scalar tags of the TensorBoard event files under the run."""
+    from tensorboard.backend.event_processing.event_accumulator import (
+        EventAccumulator,
+    )
+
+    acc = EventAccumulator(os.path.join(run_dir, "tb"))
+    acc.Reload()
+    return set(acc.Tags()["scalars"])
+
+
+@pytest.mark.parametrize("flag", ["--live", "--tensorboard"])
+def test_train_cli_live_view_and_tensorboard(tmp_path, monkeypatch, capfd,
+                                             flag):
+    """``--live`` prints a sparkline row per metric after each epoch;
+    ``--tensorboard`` writes every metric under ``<run_dir>/tb``."""
     from tpuseg_torch.cli import train
+    from tpuseg_torch.settings import get_config
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        train.main(_train_argv(tmp_path, *flag))
-    assert not (tmp_path / "runs").exists()
+    torch.set_num_threads(2)
+    monkeypatch.setattr(train, "get_config", lambda ds: _tiny(get_config(ds)))
+    _records(tmp_path)
+    out = train.main(_train_argv(tmp_path, flag))
+    text = capfd.readouterr().out
+    live = "live metrics:" in text and "train/cost" in text
+    assert live == (flag == "--live")
+    assert os.path.isdir(os.path.join(out["run_dir"], "tb")) == (
+        flag == "--tensorboard")
+    if flag == "--tensorboard":
+        assert {"train/cost", "val/cost", "train/grad_norm"} <= _tb_scalars(
+            out["run_dir"])
 
 
-def test_pred_list_ndevices_of_a_later_slice_raises(tmp_path):
+def test_train_cli_over_two_ranks(tmp_path, monkeypatch, capfd):
+    """``--ndevices 2 --live --tensorboard`` on the CPU (two gloo ranks):
+    one run directory, rank 0's logs (finite costs, the live rows once per
+    epoch, TensorBoard events) and checkpoints, the global batch of 2 split
+    one sample a rank; rank 0's result comes back."""
+    from tpuseg_torch.cli import train
+    from tpuseg_torch.settings import get_config
+
+    torch.set_num_threads(2)
+    monkeypatch.setattr(train, "get_config", lambda ds: _tiny(get_config(ds)))
+    _records(tmp_path)
+    out = train.main(_train_argv(tmp_path, "--ndevices", "2", "--live",
+                                 "--tensorboard", "--nepochs", "2"))
+    text = capfd.readouterr().out
+    assert "data-parallel: 2 ranks on the CPU, backend gloo" in text
+    assert text.count("live metrics:") == 4  # train + val, 2 epochs
+    assert text.count("Epoch [") == 2
+    runs = os.listdir(tmp_path / "runs" / "CVPPP")
+    assert [os.path.join(str(tmp_path / "runs"), "CVPPP", r)
+            for r in runs] == [out["run_dir"]]
+    assert out["step"] == 4 and [e["steps"] for e in out["epochs"]] == [2, 2]
+    files = set(os.listdir(out["run_dir"]))
+    assert {"config.json", "training.log", "validation.log",
+            "metrics.jsonl", "tb"} <= files
+    assert any(f.startswith("model_0_") for f in files)
+    with open(os.path.join(out["run_dir"], "training.log")) as f:
+        costs = [float(line.split(",")[1]) for line in f.read().split()[1:]]
+    assert len(costs) == 2 and np.isfinite(costs).all()
+    assert {"train/cost", "val/ins_dice_loss"} <= _tb_scalars(out["run_dir"])
+
+
+def test_pred_list_over_two_devices_equals_one(tmp_path):
+    """``pred_list --ndevices 2 --device cpu`` (two replicas, two images
+    each) on the first 4 images of eval_hard64 at full width writes the
+    files ``--ndevices 1`` writes, byte for byte, and those hold the JAX
+    package's counts and id maps."""
     from tpuseg_torch.cli import pred_list
+    from tpuseg_torch.data.eval_asset import default_asset_prefix, materialize_eval_tree
 
-    lst = tmp_path / "validation_image_paths.txt"
-    lst.write_text("missing.png\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        pred_list.main(["--lst", str(lst), "--model", CKPT, "--dataset",
-                        "CVPPP", "--ndevices", "2", "--device", "cpu",
-                        "--output", str(tmp_path / "out")])
-    assert not (tmp_path / "out").exists()
+    torch.set_num_threads(4)
+    n = 4
+    lst = materialize_eval_tree(default_asset_prefix(), str(tmp_path / "tree"))
+    lst = _lst_head(lst, n, str(tmp_path / "meta"))
+    dirs = []
+    for n_dev in ("1", "2"):
+        dirs.append(tmp_path / f"pred{n_dev}")
+        pred_list.main(["--lst", lst, "--model", CKPT, "--dataset", "CVPPP",
+                        "--batchsize", str(n), "--f32", "--device", "cpu",
+                        "--ndevices", n_dev, "--output", str(dirs[-1])])
+    files = sorted(p.relative_to(dirs[0]) for p in dirs[0].rglob("*")
+                   if p.is_file())
+    assert len(files) == 5 * n
+    for rel in files:
+        assert (dirs[0] / rel).read_bytes() == (dirs[1] / rel).read_bytes()
+    want = json.loads(REFERENCE.read_text())["images"][:n]
+    assert _per_image(str(dirs[1]), lst) == want
 
 
 def test_train_cli_runs_resumes_and_serves(tmp_path, monkeypatch):

@@ -246,18 +246,32 @@ def test_fit_writes_logs_and_a_checkpoint_that_restores(tmp_path, variables,
     assert restore_checkpoint(path, state2).step == 3
 
 
-def test_later_slices_raise_by_name(tmp_path, variables):
-    cfg = tiny(cvppp_config())
-    model, state = _state(cfg, variables)
-    # the on-device augmentation is ported now (tests/test_torch_device_aug.py)
-    assert callable(make_train_step(cfg, model, device_aug=True))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        fit(cfg, model, state, lambda e: [], lambda e: [], str(tmp_path),
-            mesh=object())
-    from tpuseg_torch.runtime.metrics_log import MetricLogger
+def test_fit_over_a_one_rank_mesh_with_the_live_view(tmp_path, variables,
+                                                    capsys):
+    """``fit(mesh=make_mesh(1, "cpu"), live=True, tensorboard=True)`` ends
+    where ``fit`` without them ends, bit for bit, and writes the live rows
+    and the TensorBoard events (the data-parallel runs over several ranks:
+    ``tests/test_torch_parallel.py``)."""
+    from tpuseg_torch.parallel import make_mesh
 
-    with pytest.raises(NotImplementedError):
-        MetricLogger(str(tmp_path), tensorboard=True)
+    cfg = tiny(cvppp_config())
+    # the on-device augmentation is ported now (tests/test_torch_device_aug.py)
+    assert callable(make_train_step(cfg, model=None, device_aug=True))
+    batches = [make_batch(0), make_batch(1)]
+    finals = []
+    for name, kw in (("plain", {}), ("mesh", dict(
+            mesh=make_mesh(1, "cpu"), live=True, tensorboard=True))):
+        model, state = _state(cfg, variables)
+        fit(cfg, model, state, lambda e: batches, lambda e: batches[:1],
+            str(tmp_path / name), n_epochs=1,
+            generator=torch.Generator().manual_seed(0), **kw)
+        finals.append(model.state_dict())
+    for k, v in finals[0].items():
+        assert torch.equal(v, finals[1][k]), k
+    out = capsys.readouterr().out
+    assert out.count("live metrics:") == 2 and "val/ins_dice_loss" in out
+    assert os.listdir(tmp_path / "mesh" / "tb")
+    assert not (tmp_path / "plain" / "tb").exists()
 
 
 def test_bfloat16_autocast_step_keeps_float32_state(variables):

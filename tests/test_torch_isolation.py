@@ -54,6 +54,11 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     for name in ("cli.pred", "runtime.cluster", "nn.coord_conv",
                  "utils.debug_images"):
         assert f"tpuseg_torch.{name}" in res["imported"], name
+    # and the data-parallel slice's: the mesh layer, its rank tasks,
+    # tracing, validation and the losses off the training path
+    for name in ("parallel", "parallel.mesh", "parallel.tasks",
+                 "utils.tracing", "utils.validation", "losses.lovasz"):
+        assert f"tpuseg_torch.{name}" in res["imported"], name
     assert res["bad"] == []
 
 

@@ -1,5 +1,8 @@
 """The port's losses against the JAX functions (rtol 1e-5): focal, cross
-entropy, dice, and the decoder's mask / pyramid / entropy / eval pieces.
+entropy, dice, and the decoder's mask / pyramid / entropy / eval pieces;
+and the losses off the training path (lovasz, ``bce_loss``,
+``instance_dice_loss``), values and gradients (autograd against
+``jax.grad``, atol 1e-6).
 The port's image-shaped arguments are NCHW, the JAX package's NHWC.
 """
 
@@ -13,10 +16,12 @@ from tpuseg.configs import cvppp_config as jax_cvppp_config
 from tpuseg.decoder import instance as jins
 from tpuseg.losses import dice as jdice
 from tpuseg.losses import focal as jfocal
+from tpuseg.losses import lovasz as jlov
 from tpuseg_torch.configs import cvppp_config
 from tpuseg_torch.decoder import instance as tins
 from tpuseg_torch.losses import dice as tdice
 from tpuseg_torch.losses import focal as tfocal
+from tpuseg_torch.losses import lovasz as tlov
 
 RTOL = 1e-5
 
@@ -118,3 +123,112 @@ def test_decoder_loss_pieces():
     for name in want:
         for g, w in zip(got[name], want[name]):
             _close(g, w)
+
+
+# ---- the losses off the training path: lovasz, bce_loss, instance dice ----
+
+
+def _value_and_grad(jfn, tfn, x, *rest):
+    """The JAX function's value and ``jax.grad`` with respect to ``x``
+    beside the port's value and autograd gradient, on the same inputs."""
+    want, want_g = jax.value_and_grad(
+        lambda a: jfn(a, *[jnp.asarray(r) for r in rest]))(jnp.asarray(x))
+    xt = torch.from_numpy(x.copy()).requires_grad_()
+    got = tfn(xt, *[torch.from_numpy(np.asarray(r)) for r in rest])
+    got.backward()
+    return got.detach(), want, xt.grad, want_g
+
+
+def _close_all(got, want, got_g, want_g, rtol=RTOL, atol=1e-6):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=rtol,
+                               atol=atol)
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), rtol=rtol,
+                               atol=atol)
+
+
+def test_lovasz_grad():
+    rng = np.random.default_rng(0)
+    for p in (1, 2, 37):
+        gt = (rng.random(p) > 0.4).astype(np.float32)
+        np.testing.assert_allclose(
+            tlov.lovasz_grad(torch.from_numpy(gt)).numpy(),
+            np.asarray(jlov.lovasz_grad(jnp.asarray(gt))), rtol=RTOL, atol=1e-7)
+
+
+@pytest.mark.parametrize("per_image", [True, False])
+def test_lovasz_hinge(per_image):
+    rng = np.random.default_rng(1)
+    logits = (2 * rng.normal(size=(3, 6, 7))).astype(np.float32)
+    labels = (rng.random((3, 6, 7)) > 0.5).astype(np.int32)
+    labels[2] = 0  # an image with no foreground
+    logits[0, 0, :3] = 0.25  # tied errors: the stable sort's order
+    _close_all(*_value_and_grad(
+        lambda a, b: jlov.lovasz_hinge(a, b, per_image=per_image),
+        lambda a, b: tlov.lovasz_hinge(a, b, per_image=per_image),
+        logits, labels))
+
+
+@pytest.mark.parametrize("only_present,per_image", [
+    (False, False), (True, False), (False, True), (True, True)])
+def test_lovasz_softmax(only_present, per_image):
+    rng = np.random.default_rng(2)
+    logits = rng.normal(size=(2, 5, 6, 4)).astype(np.float32)
+    probas = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    labels = rng.integers(0, 3, (2, 5, 6)).astype(np.int32)  # class 3 absent
+    _close_all(*_value_and_grad(
+        lambda a, b: jlov.lovasz_softmax(a, b, only_present, per_image),
+        lambda a, b: tlov.lovasz_softmax(a, b, only_present, per_image),
+        probas.astype(np.float32), labels))
+
+
+def test_stable_bce_and_binary_xloss():
+    rng = np.random.default_rng(3)
+    logits = (5 * rng.normal(size=(4, 9))).astype(np.float32)
+    t = (rng.random((4, 9)) > 0.5).astype(np.float32)
+    _close_all(*_value_and_grad(jlov.stable_bce_loss, tlov.stable_bce_loss,
+                                logits, t))
+    _close_all(*_value_and_grad(jlov.binary_xloss, tlov.binary_xloss,
+                                logits, t))
+    np.testing.assert_allclose(
+        tlov.stable_bce_loss(torch.from_numpy(logits), torch.from_numpy(t),
+                             reduction=False).numpy(),
+        np.asarray(jlov.stable_bce_loss(jnp.asarray(logits), jnp.asarray(t),
+                                        reduction=False)), rtol=RTOL, atol=1e-7)
+
+
+@pytest.mark.parametrize("per_image,empty", [(True, 1.0), (False, 0.0)])
+def test_iou_binary(per_image, empty):
+    rng = np.random.default_rng(4)
+    preds = (rng.random((3, 5, 5)) > 0.5).astype(np.int32)
+    labels = (rng.random((3, 5, 5)) > 0.5).astype(np.int32)
+    preds[1] = labels[1] = 0  # an empty image
+    got = tlov.iou_binary(torch.from_numpy(preds), torch.from_numpy(labels),
+                          empty=empty, per_image=per_image)
+    want = jlov.iou_binary(jnp.asarray(preds), jnp.asarray(labels),
+                           empty=empty, per_image=per_image)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL)
+
+
+def test_bce_loss_and_instance_dice_loss():
+    rng = np.random.default_rng(5)
+    pred = rng.random((3, 4, 5)).astype(np.float32)
+    pred[0, 0, :2] = [0.0, 1.0]  # the 1e-7 clip
+    target = (rng.random((3, 4, 5)) > 0.5).astype(np.float32)
+    mask = (rng.random((3, 4, 5)) > 0.3).astype(np.float32)
+    _close_all(*_value_and_grad(
+        lambda p, t, m: jfocal.bce_loss(p, t, m).sum(),
+        lambda p, t, m: tfocal.bce_loss(p, t, m).sum(), pred, target, mask))
+    target[2] = 0  # a zero-area instance adds 0
+    for smooth in (1.0, 0.5):
+        got, want, got_g, want_g = _value_and_grad(
+            lambda p, t: (jdice.instance_dice_loss(p, t, smooth)
+                          * jnp.arange(1.0, 4.0)).sum(),
+            lambda p, t: (tdice.instance_dice_loss(p, t, smooth)
+                          * torch.arange(1.0, 4.0)).sum(), pred, target)
+        _close_all(got, want, got_g, want_g)
+    from tpuseg_torch import losses
+
+    for name in ("bce_loss", "instance_dice_loss", "lovasz_grad",
+                 "lovasz_hinge", "lovasz_softmax", "stable_bce_loss",
+                 "binary_xloss", "iou_binary"):
+        assert callable(getattr(losses, name)), name

@@ -19,7 +19,9 @@ each image near its native size on a shape-bucket canvas and writes masks
 pixel-aligned with it.  ``--window`` / ``--window_stride`` default to the
 environment variables ``TPUSEG_EXTRACT_WINDOW`` /
 ``TPUSEG_EXTRACT_WINDOW_STRIDE`` (-1 when unset: the config's values).
-``--ndevices`` > 1 is not ported and raises.
+``--ndevices N`` (0: every card) splits each batch over N replicas of
+the model (``Predictor(use_mesh=True)``; the batch size rounds to a
+multiple of N).
 """
 
 from __future__ import annotations
@@ -54,8 +56,8 @@ def _parser():
     p.add_argument("--f32", action="store_true",
                    help="disable the bfloat16 inference compute path")
     p.add_argument("--ndevices", type=int, default=1,
-                   help="data-parallel devices (0 = all available); only 1 "
-                        "is ported")
+                   help="data-parallel devices for batched inference "
+                        "(0 = all available)")
     p.add_argument("--bucketed", action="store_true",
                    help="mixed-resolution bucketed inference: no fixed "
                         "resize; images run at native resolution rounded up "
@@ -85,10 +87,6 @@ def main(argv=None):
     device = resolve_device(opt.device)
     n_dev = opt.ndevices or (torch.cuda.device_count()
                              if device.type == "cuda" else 1)
-    if n_dev > 1:
-        raise NotImplementedError(
-            "data-parallel inference (--ndevices > 1) is not ported yet: "
-            "ROADMAP Queue 1 item 5")
     if opt.dataset != "CVPPP":
         raise ValueError(f"unknown dataset {opt.dataset}")
     from PIL import Image
@@ -117,7 +115,8 @@ def main(argv=None):
     predictor = Predictor(
         cfg, model, batch_size=opt.batchsize, stop_params=load_stop_params(),
         device=device, dtype=torch.float32 if opt.f32 else None,
-        staged=bool(opt.staged),
+        staged=bool(opt.staged), use_mesh=n_dev > 1,
+        n_devices=n_dev if n_dev > 1 else None,
     )
     t_ready = time.perf_counter()
 

@@ -21,8 +21,16 @@ for the ``PrefetchLoader``.
 
 ``--debug`` prints the cost every 10 steps and writes the debug images of
 a single-glimpse forward every 40 train steps under ``<run_dir>/debug``.
-``--ndevices`` > 1, ``--live`` and ``--tensorboard`` belong to later slices
-of the port and raise.
+``--live`` prints sparklines of every metric after each epoch;
+``--tensorboard`` writes the metrics under ``<run_dir>/tb``.
+
+``--ndevices N`` (0: every card) trains data-parallel over N ranks
+(``parallel.run_ranks``): the run directory is made here, before the
+ranks start; each rank reads the same loader order from the same seed and
+takes its slice of every global batch of ``--batchsize``; ``--model``
+resumes on rank 0, which ``fit`` broadcasts; rank 0 logs and saves.  NCCL
+when every rank has its own card, else gloo (ranks sharing a card, or
+``--device cpu``).
 """
 
 from __future__ import annotations
@@ -44,20 +52,12 @@ from tpuseg_torch.data.dataset import AlignCollate
 from tpuseg_torch.data.loader import PrefetchLoader
 from tpuseg_torch.data.records import open_dataset
 from tpuseg_torch.models import ReSeg
+from tpuseg_torch.parallel.mesh import run_ranks
+from tpuseg_torch.parallel.tasks import kernel_launches
 from tpuseg_torch.runtime.checkpoint import restore_checkpoint
 from tpuseg_torch.runtime.loop import fit
 from tpuseg_torch.runtime.state import create_train_state
 from tpuseg_torch.settings import default_data_paths, get_config
-
-_LATER = {
-    "ndevices": "data-parallel training (--ndevices > 1) is not ported yet: "
-                "ROADMAP Queue 1 item 5",
-    "live": "--live (the live sparkline view) is not ported yet: ROADMAP "
-            "Queue 1 item 4",
-    "tensorboard": "--tensorboard (the TensorBoard writer) is not ported "
-                   "yet: ROADMAP Queue 1 item 4",
-}
-
 
 def generate_run_id() -> str:
     """Reference train.py:46-56 format: date_time_user_random."""
@@ -84,14 +84,15 @@ def _parser():
     p.add_argument("--val_data", default="")
     p.add_argument("--runs_dir", default="models")
     p.add_argument("--ndevices", type=int, default=1,
-                   help="data-parallel devices (only 1 in this port)")
+                   help="data-parallel ranks (0 = every card); the global "
+                        "batch is split over them")
     p.add_argument("--live", action="store_true",
-                   help="terminal sparkline plots per metric (not ported)")
+                   help="terminal sparkline plots per metric")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 autocast for the train step (parameters "
                         "and optimizer stay float32)")
     p.add_argument("--tensorboard", action="store_true",
-                   help="TensorBoard scalars under <run_dir>/tb (not ported)")
+                   help="TensorBoard scalars under <run_dir>/tb")
     p.add_argument("--device_aug", action="store_true",
                    help="flips, rot90 and the photometric transforms on "
                         "the device inside the train step; the host collate "
@@ -107,8 +108,9 @@ class _LoaderClock:
     built) and the loop's wall time from the first request to the end of
     the last step (the device synchronised there)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, verbose: bool = True):
         self.device = device
+        self.verbose = verbose
         self.epochs = []
 
     def __call__(self, batches):
@@ -129,6 +131,8 @@ class _LoaderClock:
         first = waits[0] if waits else 0.0
         self.epochs.append({"steps": n, "wall_s": wall, "loader_wait_s": wait,
                             "first_batch_wait_s": first})
+        if not self.verbose:
+            return
         print(f"  train loop: {n} steps in {wall:.2f} s, "
               f"{n / max(wall, 1e-9):.3f} steps/s with the loader; waited "
               f"{wait:.2f} s ({100 * wait / max(wall, 1e-9):.1f}%) for the "
@@ -136,17 +140,14 @@ class _LoaderClock:
 
 
 def main(argv=None) -> dict:
-    """Returns ``run_dir``, the final ``step`` and per epoch the train
-    loop's ``steps``, ``wall_s``, ``loader_wait_s`` and
-    ``first_batch_wait_s``."""
+    """Returns ``run_dir``, the final ``step``, per epoch the train loop's
+    ``steps``, ``wall_s``, ``loader_wait_s`` and ``first_batch_wait_s``,
+    and the kernel ``launches`` of the run (rank 0's under ``--ndevices``,
+    with every rank's in ``rank_launches``)."""
     opt = _parser().parse_args(argv)
     device = resolve_device(opt.device)
     n_dev = opt.ndevices or (torch.cuda.device_count()
                              if device.type == "cuda" else 1)
-    for flag, on in (("ndevices", n_dev > 1), ("live", opt.live),
-                     ("tensorboard", opt.tensorboard)):
-        if on:
-            raise NotImplementedError(_LATER[flag])
 
     cfg = get_config(opt.dataset)
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
@@ -156,7 +157,24 @@ def main(argv=None) -> dict:
     with open(os.path.join(run_dir, "config.json"), "w") as f:
         json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
     print(f"run dir: {run_dir}")
+    if n_dev == 1:
+        return _train(None, opt, cfg, run_dir, device)
+    if device.type == "cuda":
+        # one build before the ranks start: they would race on _build/
+        from tpuseg_torch.kernels import build
 
+        build.build()
+    ranks = run_ranks(_train, n_dev, (opt, cfg, run_dir, device.type),
+                      device=device.type)
+    return dict(ranks[0], rank_launches=[r["launches"] for r in ranks])
+
+
+def _train(mesh, opt, cfg, run_dir: str, device) -> dict:
+    """The run after its directory exists: one process, or rank
+    ``mesh.rank`` of a data-parallel run."""
+    lead = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        device = mesh.device
     seed = cfg.train.seed
     random.seed(seed)
     np.random.seed(seed)
@@ -165,7 +183,8 @@ def main(argv=None) -> dict:
     train_path, val_path = default_data_paths(cfg, opt.dataset)
     train_ds = open_dataset(opt.train_data or train_path)
     val_ds = open_dataset(opt.val_data or val_path)
-    print(f"train: {len(train_ds)} samples, val: {len(val_ds)} samples")
+    if lead:
+        print(f"train: {len(train_ds)} samples, val: {len(val_ds)} samples")
 
     bs = cfg.train.batch_size
     if opt.device_aug:
@@ -174,8 +193,10 @@ def main(argv=None) -> dict:
                                      ("rotation", d.rotation),
                                      ("center_cut", d.center_cut)) if on]
         train_collate = AlignCollate("training_host_only", cfg.data, bs)
-        print("--device_aug: D4 + photometric run on device; host collate "
-              f"keeps {host_kept or 'no'} dynamic-shape transform(s)")
+        if lead:
+            print("--device_aug: D4 + photometric run on device; host "
+                  f"collate keeps {host_kept or 'no'} dynamic-shape "
+                  "transform(s)")
     else:
         train_collate = AlignCollate("training", cfg.data, bs)
     train_loader = PrefetchLoader(train_ds, train_collate, bs, shuffle=True,
@@ -185,21 +206,25 @@ def main(argv=None) -> dict:
                                 n_workers=opt.nworkers)
 
     state = create_train_state(cfg, ReSeg(cfg), device=device)
-    if opt.model:
+    if opt.model and lead:
         state = restore_checkpoint(opt.model, state)
         print(f"resumed from {opt.model} at step {state.step}")
 
-    clock = _LoaderClock(device)
+    before = kernel_launches()
+    clock = _LoaderClock(device, verbose=lead)
     state = fit(
         cfg, state.model, state,
         lambda epoch: clock(train_loader.epoch(epoch)),
         val_loader.epoch, run_dir, n_epochs=opt.nepochs,
-        log_every=10 if opt.debug else 0,
+        log_every=10 if opt.debug else 0, mesh=mesh,
+        live=opt.live, tensorboard=opt.tensorboard,
         debug_dir=os.path.join(run_dir, "debug") if opt.debug else None,
         device_aug=opt.device_aug,
         dtype=torch.bfloat16 if opt.bf16 else None,
     )
-    return {"run_dir": run_dir, "step": state.step, "epochs": clock.epochs}
+    return {"run_dir": run_dir, "step": state.step, "epochs": clock.epochs,
+            "launches": {k: v - before[k]
+                         for k, v in kernel_launches().items()}}
 
 
 if __name__ == "__main__":

@@ -8,7 +8,10 @@ hard-attention distribution per instance, then the glimpse loop: take one
 distribution, decode that instance's mask through the 5-level pyramid, and
 add up the pyramid focal + dice losses, a REINFORCE term with an EMA
 baseline and an entropy regulariser.  The JAX ``nn.scan`` over static
-glimpse slots is a Python loop here.
+glimpse slots is a Python loop here.  Under data parallelism the three
+reductions over the batch (the glimpse count's minimum, the baseline's mean
+and the criterion's dice sum) run over the global batch, as they do under
+the JAX mesh (``parallel/mesh.py``).
 
 The extraction path (``prep`` and ``extract_rounds``): each extraction
 round picks ``G`` disk-suppressed attention peaks in the remaining
@@ -44,6 +47,7 @@ from tpuseg_torch.losses.dice import dice_loss
 from tpuseg_torch.losses.focal import focal_loss, softmax_cross_entropy
 from tpuseg_torch.nn.attention import HardAttention, SpatialAttention
 from tpuseg_torch.nn.blocks import running_stats
+from tpuseg_torch.parallel.mesh import batch_mean, batch_min, batch_sum
 
 _NEG_INF = -1e30
 
@@ -228,7 +232,7 @@ class InstanceDecoder(nn.Module):
         pro_split, pro_merge = self.attend(self.s_sp(encode, sem), sem, target)
         del pro_merge  # feeds only the dormant PN losses of the reference
 
-        n_min = n_ins.min().clamp(min=1)
+        n_min = batch_min(n_ins).clamp(min=1)
         if train:
             k_static = int(cfg.max_iter)
             maxiter = n_min.clamp(max=k_static)
@@ -298,11 +302,11 @@ class InstanceDecoder(nn.Module):
                 # REINFORCE with an EMA baseline
                 log_p_y = -eval_dice
                 m = cfg.baseline_momentum
-                baseline_new = m * baseline + (1.0 - m) * log_p_y.mean()
+                baseline_new = m * baseline + (1.0 - m) * batch_mean(log_p_y)
                 baseline = torch.where(valid > 0, baseline_new, baseline)
                 log_p_s_a = alpha.gather(1, s[:, None])[:, 0]
                 loss_2 = -(log_p_y - baseline) * torch.log(log_p_s_a + 1e-30)
-                criterion = ce_loss + dice_l.detach().sum()
+                criterion = ce_loss + batch_sum(dice_l.detach())
                 hent = alpha_entropy(cfg, alpha, target_last.reshape(b, -1))
                 loss_vec = cfg.lambda_l * loss_pred + cfg.lambda_r * loss_2
                 loss = cfg.lambda_ins * (

@@ -1,5 +1,18 @@
-from tpuseg_torch.losses.dice import dice_coefficient, dice_loss  # noqa: F401
+from tpuseg_torch.losses.dice import (  # noqa: F401
+    dice_coefficient,
+    dice_loss,
+    instance_dice_loss,
+)
 from tpuseg_torch.losses.focal import (  # noqa: F401
+    bce_loss,
     focal_loss,
     softmax_cross_entropy,
+)
+from tpuseg_torch.losses.lovasz import (  # noqa: F401
+    binary_xloss,
+    iou_binary,
+    lovasz_grad,
+    lovasz_hinge,
+    lovasz_softmax,
+    stable_bce_loss,
 )

@@ -2,7 +2,7 @@
 
 Layout: logits and targets are ``(B, C, H, W)``, the port's NCHW; the JAX
 functions take ``(B, H, W, C)``.  Only the reduction axes differ.
-``instance_dice_loss`` is not on the training path and comes later.
+``instance_dice_loss`` (flat rows, any layout) is not on the training path.
 """
 
 from __future__ import annotations
@@ -54,3 +54,16 @@ def dice_loss(logits: torch.Tensor, target_onehot: torch.Tensor,
     if not reduce:
         return loss
     return loss.mean() if size_average else loss.sum()
+
+
+def instance_dice_loss(probs: torch.Tensor, target: torch.Tensor,
+                       smooth: float = 1.0) -> torch.Tensor:
+    """Per-instance Dice on flat rows: ``(1 - dice) * sum(target)`` per row
+    of (N, ...), so an instance of zero area adds 0.  -> (N,)."""
+    n = target.shape[0]
+    p = probs.reshape(n, -1)
+    t = target.reshape(n, -1).to(p.dtype)
+    inter = (p * t).sum(dim=1)
+    area = t.sum(dim=1)
+    dice = 2.0 * (inter + smooth) / (p.sum(dim=1) + area + smooth)
+    return (1.0 - dice) * area

@@ -1,6 +1,6 @@
-"""Focal and cross-entropy losses (port of ``tpuseg/losses/focal.py``).
+"""Focal, BCE and cross-entropy losses (port of ``tpuseg/losses/focal.py``).
 
-``bce_loss`` is not on the training path and comes with a later slice.
+``bce_loss`` is not on the training path.
 """
 
 from __future__ import annotations
@@ -8,6 +8,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from tpuseg_torch.parallel.mesh import all_reduce_sum, world_size
 
 _EPS = 1e-7
 
@@ -31,6 +33,18 @@ def focal_loss(logits: torch.Tensor, targets: torch.Tensor,
     return loss_1 + loss_0
 
 
+def bce_loss(pred: torch.Tensor, target: torch.Tensor,
+             mask: torch.Tensor) -> torch.Tensor:
+    """Masked binary log-likelihood summed per sample, (N,): like the JAX
+    function (and the reference), the *negative* of a loss."""
+    n = target.shape[0]
+    p = pred.reshape(n, -1).clamp(_EPS, 1.0 - _EPS)
+    t = target.reshape(n, -1).to(p.dtype)
+    m = mask.reshape(n, -1).to(p.dtype)
+    ll = t * torch.log(p) + (1.0 - t) * torch.log(1.0 - p)
+    return (ll * m).sum(dim=1)
+
+
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           class_weights: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
@@ -44,4 +58,8 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         return ce.mean()
     w = torch.as_tensor(class_weights, dtype=logits.dtype,
                         device=logits.device)[labels]
-    return (w * ce).sum() / w.sum()
+    # under data parallelism each rank divides by its share of the global
+    # weight sum, so the ranks' mean is the global weighted mean
+    n = world_size()
+    den = w.sum() if n == 1 else all_reduce_sum(w.sum()) / n
+    return (w * ce).sum() / den

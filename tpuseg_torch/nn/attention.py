@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from tpuseg_torch.kernels.masked_softmax import masked_softmax
 from tpuseg_torch.nn.blocks import batch_norm, running_stats_frozen
+from tpuseg_torch.parallel.mesh import batch_mean
 
 _NEG_INF = -1e30
 
@@ -72,7 +73,8 @@ class MaskedBatchNorm(nn.Module):
     ``running = momentum * running + (1 - momentum) * batch`` with
     ``momentum`` 0.1, so they track the latest batch closely (eval-time
     behaviour depends on it).  Eval mode normalises with the running
-    statistics."""
+    statistics.  Under data parallelism the batch averages run over the
+    global batch (``parallel/mesh.py::batch_mean``)."""
 
     def __init__(self, c: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -91,9 +93,9 @@ class MaskedBatchNorm(nn.Module):
                 raise ValueError("MaskedBatchNorm needs the mask in train mode")
             m = mask.float()  # (B, 1, H, W), broadcast over channels
             cnt = m.sum(dim=(1, 2, 3)) + 1.0  # (B,)
-            mean = ((xf * m).sum(dim=(2, 3)) / cnt[:, None]).mean(dim=0)
+            mean = batch_mean((xf * m).sum(dim=(2, 3)) / cnt[:, None])
             sq = (xf - v(mean)) ** 2
-            var = ((sq * m).sum(dim=(2, 3)) / cnt[:, None]).mean(dim=0)
+            var = batch_mean((sq * m).sum(dim=(2, 3)) / cnt[:, None])
             if not running_stats_frozen():
                 with torch.no_grad():
                     mo = self.momentum

@@ -10,6 +10,11 @@ the unbiased one, so a train step ends with the running statistics the JAX
 package ends with.  ``running_stats`` lets a caller stop the update (a
 recomputed forward under activation checkpointing) or let one update stand
 for several identical ones (skip transforms hoisted out of the glimpse loop).
+
+Under data parallelism (a process group of several ranks, ``parallel/``)
+a train-mode BatchNorm takes its statistics over the global batch, as the
+JAX package's does under a mesh: the ranks all-reduce ``sum(x)``,
+``sum(x^2)`` and the count, and the reduction is differentiable.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from tpuseg_torch.parallel.mesh import all_reduce_sum, world_size
 
 
 def relu6(x: torch.Tensor) -> torch.Tensor:
@@ -57,6 +64,8 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     with ``m`` torch's momentum (0.1, flax's 0.9)."""
     if not bn.training:
         return bn(x)
+    if world_size() > 1:
+        return _global_batch_norm(bn, x)
     mean = torch.zeros_like(bn.running_mean)
     var = torch.ones_like(bn.running_var)
     # momentum 1 leaves the batch mean and the unbiased batch variance
@@ -68,6 +77,29 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
             bn.running_mean.lerp_(mean, w)
             bn.running_var.lerp_(var * ((n - 1) / n), w)
     return y
+
+
+def _global_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """Train-mode ``batch_norm`` with the statistics of the batch of every
+    rank: one all-reduce of (sum x, sum x^2, count) per call, float32, the
+    biased variance as ``E[x^2] - E[x]^2`` (flax's fast variance)."""
+    c = x.shape[1]
+    xf = x.float()
+    stats = torch.cat([xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3)),
+                       xf.new_full((1,), float(x.numel() // c))])
+    stats = all_reduce_sum(stats)
+    n = stats[2 * c]
+    mean = stats[:c] / n
+    var = (stats[c:2 * c] / n - mean.square()).clamp_min(0.0)
+    shape = (1, c, 1, 1)
+    scale = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean.view(shape)) * scale.view(shape) + bn.bias.view(shape)
+    if not _RUNNING["frozen"]:
+        w = 1.0 - (1.0 - bn.momentum) ** _RUNNING["repeats"]
+        with torch.no_grad():
+            bn.running_mean.lerp_(mean, w)
+            bn.running_var.lerp_(var, w)
+    return y.to(x.dtype)
 
 
 class _BN(nn.Module):

@@ -5,6 +5,13 @@ plateau LR step on the validation cost -> best-val checkpoint keyed on
 ``ins_dice_loss`` -> CSV/jsonl logging.  With ``debug_dir`` the loop
 writes the debug images of one single-glimpse forward every
 ``debug_every`` train steps.
+
+With ``mesh`` (``parallel.make_mesh`` inside a rank of
+``parallel.run_ranks``) the loop runs data-parallel: rank 0's state is
+replicated, each batch is padded to a multiple of the ranks (sample 0
+repeated) and sharded, the steps average gradients and metrics over the
+ranks, and rank 0 alone writes the logs, the live view, TensorBoard, the
+checkpoints and the debug dumps while the others wait at a barrier.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import numpy as np
 import torch
 
 from tpuseg_torch.configs import Config
+from tpuseg_torch.parallel.mesh import barrier, pad_and_shard, replicate
 from tpuseg_torch.runtime.checkpoint import save_checkpoint
 from tpuseg_torch.runtime.metrics_log import MetricLogger
 from tpuseg_torch.runtime.state import TrainState
@@ -72,23 +80,34 @@ def fit(
     dicts (numpy arrays or tensors, ``runtime/train.py`` gives the layout).
     Runs on the device of ``state`` (``create_train_state`` put the model
     there).  ``generator``: the random stream of the run, on that device;
-    seeded from ``cfg.train.seed`` when None.  ``dtype=torch.bfloat16``
-    runs the model under autocast.  ``debug_dir``: after train steps 1,
-    1 + ``debug_every``, ... of each epoch, the debug images of that step's
-    batch go to ``<debug_dir>/ep<epoch:03d>_it<step:05d>``.  Data-parallel
-    meshes are a later slice of the port."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel fit (mesh) is a later slice of the port")
+    when None, seeded from ``cfg.train.seed`` (and, on rank r > 0 of a
+    mesh, from (seed, r)).  ``dtype=torch.bfloat16`` runs the model under
+    autocast.  ``debug_dir``: after train steps 1, 1 + ``debug_every``, ...
+    of each epoch, the debug images of that step's batch go to
+    ``<debug_dir>/ep<epoch:03d>_it<step:05d>``.  ``mesh``: see the module
+    docstring; every rank returns its (identical) state."""
     n_epochs = n_epochs or cfg.train.n_epochs
+    lead = mesh is None or mesh.rank == 0
     if generator is None:
         generator = torch.Generator(device=state.device)
-        generator.manual_seed(cfg.train.seed)
+        seed = cfg.train.seed
+        if not lead:
+            seed = int(np.random.SeedSequence([seed, mesh.rank])
+                       .generate_state(1)[0])
+        generator.manual_seed(seed)
+    if mesh is not None:
+        replicate(state, mesh)
     train_step = make_train_step(cfg, model, train_cnn=cfg.train.train_cnn,
                                  device_aug=device_aug, dtype=dtype)
     eval_step = make_eval_step(cfg, model, dtype=dtype)
-    debug_step = make_debug_step(cfg, model, dtype=dtype) if debug_dir else None
-    logger = MetricLogger(run_dir, live=live, tensorboard=tensorboard)
+    debug_step = (make_debug_step(cfg, model, dtype=dtype)
+                  if debug_dir and lead else None)
+    logger = (MetricLogger(run_dir, live=live, tensorboard=tensorboard)
+              if lead else None)
+
+    def _prepare(batch):
+        return batch if mesh is None else pad_and_shard(batch, mesh)
+
     best_val = np.inf
     val_key = "ins_dice_loss" if cfg.model.use_instance_segmentation else (
         "dice_cost" if cfg.train.criterion in ("Dice", "Multi") else "ce_cost"
@@ -98,42 +117,48 @@ def fit(
         t0 = time.time()
         train_metrics = []
         for batch in train_batches(epoch):
+            batch = _prepare(batch)
             state, m = train_step(state, batch, generator)
             train_metrics.append(m)
             it = len(train_metrics)
             if debug_step is not None and (it - 1) % debug_every == 0:
                 _dump_debug(debug_step, state, batch, os.path.join(
                     debug_dir, f"ep{epoch:03d}_it{it:05d}"))
-            if log_every and len(train_metrics) % log_every == 0:
-                print(f"epoch {epoch} it {len(train_metrics)}: "
-                      f"cost={float(m['cost']):.4f}")
+            if lead and log_every and it % log_every == 0:
+                print(f"epoch {epoch} it {it}: cost={float(m['cost']):.4f}")
         agg_train = _aggregate(train_metrics)
-        logger.log("train", epoch, agg_train, cost_key=val_key)
+        if lead:
+            logger.log("train", epoch, agg_train, cost_key=val_key)
 
-        val_metrics = [eval_step(state, batch, generator)
+        val_metrics = [eval_step(state, _prepare(batch), generator)
                        for batch in val_batches(epoch)]
         agg_val = _aggregate(val_metrics)
-        logger.log("val", epoch, agg_val, cost_key=val_key)
+        if lead:
+            logger.log("val", epoch, agg_val, cost_key=val_key)
 
         val_cost = agg_val.get(val_key, agg_val.get("cost", 0.0))
         state.plateau = state.plateau.step(val_cost)
 
-        dur = time.time() - t0
-        print(
-            f"Epoch [{epoch}/{n_epochs}] {dur:.1f}s "
-            f"train={ {k: round(v, 4) for k, v in agg_train.items()} } "
-            f"val={ {k: round(v, 4) for k, v in agg_val.items()} } "
-            f"lr={state.plateau.lr:.4g}"
-        )
-
+        if lead:
+            dur = time.time() - t0
+            print(
+                f"Epoch [{epoch}/{n_epochs}] {dur:.1f}s "
+                f"train={ {k: round(v, 4) for k, v in agg_train.items()} } "
+                f"val={ {k: round(v, 4) for k, v in agg_val.items()} } "
+                f"lr={state.plateau.lr:.4g}"
+            )
         if val_cost <= best_val:
             best_val = val_cost
-            save_checkpoint(
-                os.path.join(
-                    os.path.abspath(run_dir),
-                    f"model_{epoch}_{val_cost:.8f}_{state.plateau.lr:.4g}",
-                ),
-                state, metadata={"epoch": epoch, "val_cost": float(val_cost)},
-            )
-    logger.close()
+            if lead:
+                save_checkpoint(
+                    os.path.join(
+                        os.path.abspath(run_dir),
+                        f"model_{epoch}_{val_cost:.8f}_{state.plateau.lr:.4g}",
+                    ),
+                    state,
+                    metadata={"epoch": epoch, "val_cost": float(val_cost)},
+                )
+        barrier(mesh)
+    if lead:
+        logger.close()
     return state

@@ -25,13 +25,22 @@ native size on a zero-padded bucket canvas), ``predict_semantic``,
 The predictor runs on the card by default and raises when CUDA is absent
 unless ``device="cpu"`` is asked for.  ``dtype`` defaults to bfloat16 on
 the card (as the JAX ``pred_list`` does) and float32 on the CPU; float32
-runs every call with TF32 off (:func:`tf32_off`).  The mesh predictor of
-the JAX package (``use_mesh``) is not ported.
+runs every call with TF32 off (:func:`tf32_off`).
+
+``use_mesh`` is the JAX package's data-parallel predictor: one replica of
+the model per device (replica i on ``cuda:(i % device_count)``, every one
+on the CPU when the predictor is), the batch size rounded to a multiple of
+them, each batch split on its leading axis and the outputs gathered in
+order.  Inference reduces nothing over the batch, so this is one process.
+The replicas run one after another from the calling thread: each round
+loop syncs the host once a round, so on several cards they do not
+overlap.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,6 +49,7 @@ import torch
 from tpuseg_torch import resolve_device
 from tpuseg_torch.configs import Config
 from tpuseg_torch.data.colorspace import image_ex_standardize
+from tpuseg_torch.parallel.mesh import rank_device
 
 
 @contextlib.contextmanager
@@ -81,6 +91,8 @@ class Predictor:
         sync_rounds: bool = True,
         staged: bool = False,
         staged_margin: int = 1,
+        use_mesh: bool = False,
+        n_devices: Optional[int] = None,
     ):
         """``model``: a ``ReSeg`` with its weights loaded (float32).
         ``dtype=torch.float32`` runs every call with TF32 off
@@ -90,7 +102,9 @@ class Predictor:
         extract_group) rounds.  ``staged``: the staged dispatch for
         ``predict_batch_arrays(with_probs=False)``, ``predict_batch_packed``
         and ``predict_paths``; ``staged_margin`` extra rounds in its first
-        chunk."""
+        chunk.  ``use_mesh``: replicas on ``n_devices`` devices (all cards
+        when None; see the module docstring); ``replicas`` lists them,
+        this predictor first."""
         self.device = resolve_device(device)
         if dtype is None:
             dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
@@ -104,6 +118,17 @@ class Predictor:
         self.sync_rounds = sync_rounds
         self.staged = staged
         self.staged_margin = staged_margin
+        self.replicas = [self]
+        if use_mesh:
+            n = n_devices or (torch.cuda.device_count()
+                              if self.device.type == "cuda" else 1)
+            self.batch_size = max(batch_size // n, 1) * n
+            self.replicas += [Predictor(
+                cfg, copy.deepcopy(model), batch_size=self.batch_size // n,
+                max_instances=max_instances, stop_params=stop_params,
+                device=rank_device(i, self.device), dtype=dtype,
+                sync_rounds=sync_rounds, staged=staged,
+                staged_margin=staged_margin) for i in range(1, n)]
         self.model = model.to(self.device).to_inference(dtype)
         self.group = max(int(cfg.decoder.extract_group), 1)
         k_static = max_instances or cfg.data.max_n_objects
@@ -236,13 +261,40 @@ class Predictor:
             raise ValueError("images must be (B, H, W, 3) uint8")
         return x.to(self.device, non_blocking=True)
 
+    def _over_replicas(self, local, images_u8):
+        """``local(replica, shard)`` for each replica on its contiguous
+        shard of the batch, one after another; the outputs (tuples of
+        tensors or None) concatenated in order on this predictor's
+        device."""
+        n = len(self.replicas)
+        if n == 1:
+            return local(self, images_u8)
+        b = images_u8.shape[0]
+        if b % n:
+            raise ValueError(f"batch of {b} does not divide over {n} replicas")
+        per, outs = b // n, []
+        with self._compute():
+            for i, rep in enumerate(self.replicas):
+                on = (torch.cuda.device(rep.device)
+                      if rep.device.type == "cuda" else contextlib.nullcontext())
+                with on:
+                    outs.append(local(rep, images_u8[i * per:(i + 1) * per]))
+        return tuple(None if parts[0] is None else
+                     torch.cat([t.to(self.device) for t in parts])
+                     for parts in zip(*outs))
+
     def predict_batch_arrays(self, images_u8, with_probs: bool = True):
         """images_u8 (B, H, W, 3) uint8 -> (sem_probs, fg, idmap, counts) on
         the device, as the JAX package's predictor returns them: with
         ``with_probs`` sem_probs (B, H, W, 2) float32, fg (B, H, W) uint8,
         idmap (B, H, W) int32 and counts (B,) int32 (always the monolithic
         dispatch); without, (None, fg uint8, idmap uint8, counts int32),
-        staged when the predictor is."""
+        staged when the predictor is.  Split over the replicas under a
+        mesh."""
+        return self._over_replicas(
+            lambda rep, x: rep._batch_arrays(x, with_probs), images_u8)
+
+    def _batch_arrays(self, images_u8, with_probs: bool):
         x = self._to_device(images_u8)
         if not with_probs and self.staged:
             fg, idmap, counts = self._infer_staged(x)
@@ -258,7 +310,11 @@ class Predictor:
     def predict_batch_packed(self, images_u8):
         """(packed (B, H, W) uint8, counts (B,) int32) on the device — one
         mask plane per batch (:func:`pack_masks`); staged when the
-        predictor is."""
+        predictor is; split over the replicas under a mesh."""
+        return self._over_replicas(lambda rep, x: rep._batch_packed(x),
+                                   images_u8)
+
+    def _batch_packed(self, images_u8):
         x = self._to_device(images_u8)
         if self.staged:
             fg, idmap, counts = self._infer_staged(x)
@@ -307,11 +363,11 @@ class Predictor:
         uint8), ins_mask (native res ids, uint8), n_objects).
 
         A staged predictor dispatches ``window`` batches at a time
-        (:meth:`predict_batches_staged`); the monolithic one a batch at a
-        time."""
+        (:meth:`predict_batches_staged`), unless it has a mesh; the
+        monolithic one a batch at a time."""
         bs = self.batch_size
         starts = list(range(0, len(paths), bs))
-        win = window if self.staged else 1
+        win = window if self.staged and len(self.replicas) == 1 else 1
         for ws in range(0, len(starts), win):
             metas, xs = [], []
             for start in starts[ws:ws + win]:

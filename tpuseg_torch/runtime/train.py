@@ -11,6 +11,12 @@ the 21 standardised channels), ``sem_onehot (B, H, W, C)``, ``ins_masks
 side is NCHW.  Every random draw of a step (instance order, glimpse
 sampling, dropout) comes from the ``torch.Generator`` handed to it, which
 lies on the step's device.
+
+Under data parallelism (a process group of several ranks, each with its
+shard of the global batch: ``parallel/``) a step is the JAX mesh step:
+the gradients are averaged over the ranks as one flat all-reduce before
+the clips and the optimizer see them, and the metrics are averaged too, so
+every rank logs and schedules on the global values.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from tpuseg_torch.data.colorspace import image_ex_standardize
 from tpuseg_torch.data.device_aug import device_augment
 from tpuseg_torch.losses.dice import dice_loss
 from tpuseg_torch.losses.focal import softmax_cross_entropy
+from tpuseg_torch.parallel.mesh import mean_over_ranks_, world_size
 from tpuseg_torch.runtime.state import TrainState, global_norm
 
 
@@ -127,6 +134,15 @@ def _forward(cfg, model, batch, device, dtype, generator, train: bool):
                       n_objects=n_obj)
 
 
+def _mean_over_ranks(metrics: Dict[str, torch.Tensor]) -> None:
+    """Each metric replaced by its mean over the ranks (in one all-reduce),
+    in place."""
+    if world_size() > 1:
+        for k, v in metrics.items():
+            metrics[k] = v.float().clone()
+        mean_over_ranks_(list(metrics.values()))
+
+
 def make_train_step(cfg: Config, model, train_cnn: bool = True,
                     device_aug: bool = False,
                     dtype: Optional[torch.dtype] = None):
@@ -160,6 +176,9 @@ def make_train_step(cfg: Config, model, train_cnn: bool = True,
         cost, metrics = _forward(cfg, model, batch, state.device, dtype,
                                  generator, train=True)
         cost.backward()
+        _mean_over_ranks(metrics)
+        mean_over_ranks_([p.grad for p in model.parameters()
+                          if p.grad is not None])
         if not train_cnn:
             for p in model.base.parameters():
                 if p.grad is not None:
@@ -201,6 +220,7 @@ def make_eval_step(cfg: Config, model, dtype: Optional[torch.dtype] = None):
         with torch.no_grad():
             _, metrics = _forward(cfg, model, batch, state.device, dtype,
                                   generator, train=False)
+            _mean_over_ranks(metrics)
         return metrics
 
     return eval_step
