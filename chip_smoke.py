@@ -117,15 +117,18 @@ Builds the port's CUDA kernels (``ir_chain``, ``masked_softmax``,
     deterministic glimpses, no dropout, SGD, global B=4, 2 steps + 1
     validation batch from equal weights: parameters, BN statistics and the
     REINFORCE baseline within rtol 5e-3 / atol 1.6e-2 of the one process,
-    the ranks bit-identical; then 1 rank over NCCL, equal to the one
-    process bit for bit where the one process repeats itself bit for bit
-    (else within that tolerance); then timed: bf16, sampling and dropout
-    on, global B=8 (2 x 4), 10 steps after 2 warm-up, steps/s beside item
-    6's one process, the ms a step's all-reduces take replayed alone, and
-    each rank's ``masked_softmax`` launches (1 forward, ``BACKWARD_LAUNCHES``
-    backward a step);
+    the parameters' update within ``UPDATE_TOL`` of the one process's
+    (relative, over all of them), the logged metrics (``grad_norm`` among
+    them) within ``METRIC_TOL``, the ranks bit-identical; then 1 rank over NCCL, equal
+    to the one process bit for bit where the one process repeats itself
+    bit for bit (else within that tolerance); then timed: bf16, sampling
+    and dropout on, global B=8 (2 x 4), 10 steps after 2 warm-up, steps/s
+    beside item 6's one process, each rank's ``masked_softmax`` launches
+    (1 forward, ``BACKWARD_LAUNCHES`` backward a step), and one more step
+    traced: its all-reduces and their ms, read from the trace;
 19. drives the mesh predictor (``Predictor(use_mesh=True, n_devices=2)``:
-    two replicas on the card, each batch split) over item 3's 256 images,
+    two replicas on the card, one after the other, each batch split) over
+    item 3's 256 images,
     B=32: f32 counts equal to the one-replica predictor's and >= 99.9% of
     id-map pixels, 20 ``ir_chain`` launches a round of each replica; bf16
     img/s of both, alternated;
@@ -2004,6 +2007,14 @@ def phase_debug(cfg, model, dev, root, smi):
 
 
 DP_TOL = dict(rtol=5e-3, atol=1.6e-2)  # tests/test_fit_mesh.py's
+# dp-fit's gates on what the gradient's reductions decide: the relative
+# error of the parameters' update and the logged metrics' (grad_norm among
+# them) against one process.  tools/dp_gate.py on the card read up to
+# 1.0e-3 / 2.4e-3 for the sound reductions, >= 0.25 / 0.76 with the
+# statistics' backward all-reduce dropped or the gradients summed
+# (PERF.md, PR 10)
+UPDATE_TOL = 2e-2
+METRIC_TOL = 4e-2
 
 
 def _state_diff(a, b):
@@ -2025,6 +2036,57 @@ def _state_diff(a, b):
     return worst, bad
 
 
+def _update_error(got, want, init, names):
+    """``||d_got - d_want|| / ||d_want||`` over the parameters ``names``
+    at once, ``d`` the change from ``init``; and the parameter with the
+    largest share of the miss."""
+    import torch
+
+    miss, norm = {}, 0.0
+    for k in names:
+        d_want = want[k].double() - init[k].double()
+        miss[k] = float(torch.linalg.vector_norm(
+            got[k].double() - want[k].double())) ** 2
+        norm += float(torch.linalg.vector_norm(d_want)) ** 2
+    total = sum(miss.values())
+    ratio = (total / norm) ** 0.5 if norm else (0.0 if total == 0 else
+                                                  float("inf"))
+    return ratio, max(miss, key=miss.get)
+
+
+def _logged_metrics(run_dir):
+    """{(split, metric): value} of the epochs ``fit`` logged in the run's
+    ``metrics.jsonl``."""
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    return {(r["split"], r["epoch"], k): v for r in recs for k, v in r.items()
+            if k not in ("ts", "split", "epoch")}
+
+
+def _metric_errors(got, want):
+    """max over the logged metrics of |got - want| / max(|want|, 1e-3),
+    and the metric."""
+    if got.keys() != want.keys():
+        return float("inf"), "keys differ"
+    errs = {k: abs(got[k] - v) / max(abs(v), 1e-3) for k, v in want.items()}
+    k = max(errs, key=errs.get)
+    return errs[k], "/".join(map(str, k))
+
+
+def dp_readings(two, one, init, names, two_dir, one_dir):
+    """What dp-fit holds two ranks' ``fit`` to against one process: the
+    worst |diff| over the state and the tensors outside ``DP_TOL``, the
+    parameters' update error (``_update_error``) and the logged metrics'
+    relative error (``_metric_errors``)."""
+    worst, bad = _state_diff(two, one)
+    upd, upd_at = _update_error(two, one, init, names)
+    met, met_at = _metric_errors(_logged_metrics(two_dir),
+                                 _logged_metrics(one_dir))
+    return {"max_abs_diff": worst, "outside_tol": bad,
+            "update_err": upd, "update_err_at": upd_at,
+            "metric_err": met, "metric_err_at": met_at}
+
+
 def _states_equal(a, b):
     import torch
 
@@ -2032,19 +2094,13 @@ def _states_equal(a, b):
                                         for k, v in a.items())
 
 
-def phase_dp_fit(cfg, model, dev, train, smi):
-    """Data-parallel fit over 2 gloo ranks on the card against one process
-    (f32), 1 NCCL rank, then the timed bf16 data-parallel steps."""
+def dp_fit_inputs(cfg, model):
+    """dp-fit's f32 comparison: the model state, the configuration
+    (deterministic glimpses, no dropout, SGD at 0.01, global B=4), 2
+    train batches and 1 validation batch."""
     import dataclasses
-    import tempfile
-
-    import torch
 
     from tpuseg_torch.data.synthetic import make_batch
-    from tpuseg_torch.kernels.masked_softmax import (
-        BACKWARD_LAUNCHES, FORWARD_LAUNCHES,
-    )
-    from tpuseg_torch.parallel import make_mesh, run_ranks, tasks
 
     sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     det = dataclasses.replace(
@@ -2055,12 +2111,34 @@ def phase_dp_fit(cfg, model, dev, train, smi):
     rng = np.random.default_rng(31)
     batches = [make_batch(rng, 4, 256, 256, cfg.data.max_n_objects, hard=True)
                for _ in range(3)]
-    train_b, val_b = batches[:2], batches[2:]
+    return sd, det, batches[:2], batches[2:]
+
+
+def dp_fit_args(det, sd, train_b, val_b, run_dir):
+    """``tasks.fit_run``'s arguments after the mesh: 1 epoch, f32."""
+    import torch
+
+    return (det, sd, train_b, val_b, run_dir, 1, torch.float32)
+
+
+def phase_dp_fit(cfg, model, dev, train, smi):
+    """Data-parallel fit over 2 gloo ranks on the card against one process
+    (f32), 1 NCCL rank, then the timed bf16 data-parallel steps."""
+    import tempfile
+
+    import torch
+
+    from tpuseg_torch.data.synthetic import make_batch
+    from tpuseg_torch.kernels.masked_softmax import (
+        BACKWARD_LAUNCHES, FORWARD_LAUNCHES,
+    )
+    from tpuseg_torch.parallel import make_mesh, run_ranks, tasks
+
+    sd, det, train_b, val_b = dp_fit_inputs(cfg, model)
     root = tempfile.mkdtemp(prefix="chip_smoke_dp_")
-    f32 = torch.float32
 
     def args(name):
-        return (det, sd, train_b, val_b, os.path.join(root, name), 1, f32)
+        return dp_fit_args(det, sd, train_b, val_b, os.path.join(root, name))
 
     out = {}
     t = time.perf_counter()
@@ -2070,18 +2148,23 @@ def phase_dp_fit(cfg, model, dev, train, smi):
     repeats = _states_equal(one["model"], again["model"])
     # the timed run's batches: bf16, sampling + dropout (phase 7's
     # configuration); both runs in one spawn of the 2 ranks
+    # (the last batch's step traced, untimed: its all-reduces)
     B, n_warm, n_steps = 8, 2, 10
     rng = np.random.default_rng(13)
     steps_b = [make_batch(rng, B, 256, 256, cfg.data.max_n_objects, hard=True)
-               for _ in range(n_warm + n_steps)]
+               for _ in range(n_warm + n_steps + 1)]
     t = time.perf_counter()
     runs = run_ranks(tasks.in_turn, 2, ([
         (tasks.fit_run, args("two")),
-        (tasks.train_steps, (cfg, sd, steps_b, torch.bfloat16, n_warm)),
+        (tasks.train_steps, (cfg, sd, steps_b, torch.bfloat16, n_warm,
+                             os.path.join(root, "trace"))),
     ],), device="cuda", backend="gloo", timeout=600)
     out["two_ranks_wall_s"] = time.perf_counter() - t
     two, timed = [r[0] for r in runs], [r[1] for r in runs]
-    worst, bad = _state_diff(two[0]["model"], one["model"])
+    names = [n for n, _ in model.named_parameters()]
+    read = dp_readings(two[0]["model"], one["model"], sd, names,
+                       os.path.join(root, "two"), os.path.join(root, "one"))
+    worst, bad = read["max_abs_diff"], read["outside_tol"]
     identical = _states_equal(two[0]["model"], two[1]["model"])
     nccl = run_ranks(tasks.fit_run, 1, args("nccl"), device="cuda",
                      backend="nccl", timeout=600)[0]
@@ -2090,6 +2173,10 @@ def phase_dp_fit(cfg, model, dev, train, smi):
     rerun_worst = _state_diff(again["model"], one["model"])[0]
     out.update({
         "f32_max_abs_diff_vs_one": worst, "ranks_bit_identical": identical,
+        "f32_update_err": read["update_err"],
+        "f32_update_err_at": read["update_err_at"],
+        "f32_metric_err": read["metric_err"],
+        "f32_metric_err_at": read["metric_err_at"],
         "one_process_repeats_bit_for_bit": repeats,
         "one_process_rerun_max_abs_diff": rerun_worst,
         "nccl_one_rank_bit_equal": nccl_equal,
@@ -2101,7 +2188,12 @@ def phase_dp_fit(cfg, model, dev, train, smi):
         f"one card, 2 SGD steps + 1 validation batch, deterministic "
         f"glimpses, TF32 off): max |two ranks - one process| {worst:.3e} "
         f"over parameters, BN statistics and baseline, {len(bad)} tensors "
-        f"outside rtol 5e-3 / atol 1.6e-2; ranks bit-identical {identical}; "
+        f"outside rtol 5e-3 / atol 1.6e-2; the parameters' update off by "
+        f"{read['update_err']:.3e} of its norm (gate {UPDATE_TOL:g}; most "
+        f"of it in {read['update_err_at']}); "
+        f"logged metrics off by {read['metric_err']:.3e} at worst "
+        f"({read['metric_err_at']}, gate {METRIC_TOL:g}); ranks "
+        f"bit-identical {identical}; "
         f"one process rerun: bit-equal {repeats} (max |diff| "
         f"{rerun_worst:.3e}); 1 NCCL rank vs one process: bit-equal "
         f"{nccl_equal}, max |diff| {nccl_worst:.3e}; spawn + 2 ranks (this "
@@ -2111,6 +2203,8 @@ def phase_dp_fit(cfg, model, dev, train, smi):
         raise AssertionError(
             f"dp-fit f32: steps {[r['step'] for r in two]}, ranks identical "
             f"{identical}, outside the tolerance: {bad[:8]}")
+    if read["update_err"] > UPDATE_TOL or read["metric_err"] > METRIC_TOL:
+        raise AssertionError(f"dp-fit f32: {read}")
     if (repeats and not nccl_equal) or nccl_bad:
         raise AssertionError(
             f"dp-fit: 1 NCCL rank differs from one process (bit-equal "
@@ -2130,18 +2224,25 @@ def phase_dp_fit(cfg, model, dev, train, smi):
         "steps_per_s_bf16": sps, "ms_per_step_bf16": 1e3 / sps,
         "one_process_steps_per_s_bf16": train["steps_per_s"],
         "collectives_per_step": r0["collectives_per_step"],
-        "collective_ms_per_step": r0["collective_ms_per_step"],
+        "collective_ms_per_step": [r["collective_ms_per_step"]
+                                   for r in timed],
         "launches_bf16": launches,
     })
     log(f"  dp-fit bf16 timed (global B={B} = 2 gloo ranks x 4 on one card, "
         f"sampling + dropout, {n_steps} steps after {n_warm}): "
         f"{sps:.3f} steps/s ({1e3 / sps:.1f} ms/step) against phase 7's one "
         f"process at B={B} {train['steps_per_s']:.3f} steps/s; "
-        f"{r0['collectives_per_step']:.0f} all-reduces a step take "
-        f"{r0['collective_ms_per_step']:.1f} ms replayed alone; "
+        f"{r0['collectives_per_step']:.0f} all-reduces in a traced step take "
+        f"{r0['collective_ms_per_step']:.1f} ms (rank 1: "
+        f"{timed[1]['collective_ms_per_step']:.1f}); "
         f"masked_softmax launches per rank {launches} [{smi}]")
     if not np.isfinite(costs).all():
         raise AssertionError(f"dp-fit bf16: non-finite costs {costs}")
+    if not r0["collectives_per_step"] or any(
+            r["collectives_per_step"] != r0["collectives_per_step"]
+            for r in timed):
+        raise AssertionError(f"dp-fit bf16: all-reduces a traced step "
+                             f"{[r['collectives_per_step'] for r in timed]}")
     for r, lc in enumerate(launches):
         if (lc["masked_softmax_forward"] != FORWARD_LAUNCHES * n_steps
                 or lc["masked_softmax_backward"]

@@ -347,6 +347,28 @@ def test_train_cli_over_two_ranks(tmp_path, monkeypatch, capfd):
     assert {"train/cost", "val/ins_dice_loss"} <= _tb_scalars(out["run_dir"])
 
 
+def test_train_cli_ranks_run_without_a_deadline(tmp_path, monkeypatch):
+    """``train --ndevices N`` starts its ranks with no deadline for the
+    run (a real run lasts hours) and a collective timeout long enough for
+    rank 0's logging and checkpoints at the epoch's barrier."""
+    from tpuseg_torch.cli import train
+
+    calls = []
+
+    def fake_run_ranks(task, n, args, **kw):
+        calls.append((n, kw))
+        return [{"run_dir": args[2], "launches": {}}] * n
+
+    monkeypatch.setattr(train, "run_ranks", fake_run_ranks)
+    out = train.main(_train_argv(tmp_path, "--ndevices", "2",
+                                 "--nepochs", "600"))
+    (n, kw), = calls
+    assert n == 2 and kw["device"] == "cpu"
+    assert kw["timeout"] is None
+    assert kw["collective_timeout"] == train.CLI_COLLECTIVE_TIMEOUT_S >= 600
+    assert out["rank_launches"] == [{}, {}]
+
+
 def test_pred_list_over_two_devices_equals_one(tmp_path):
     """``pred_list --ndevices 2 --device cpu`` (two replicas, two images
     each) on the first 4 images of eval_hard64 at full width writes the

@@ -2,9 +2,11 @@
 no JAX, flax, msgpack, PIL or ``tpuseg`` module, and its entry points run
 on the card unless asked for the CPU."""
 
+import importlib
 import json
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -153,3 +155,31 @@ def test_sru_takes_the_plain_path_only_for_cpu_tensors():
         sru_scan(torch.zeros(5, 2, 24, **meta), torch.zeros(5, 2, 4, **meta),
                  torch.zeros(12, **meta), torch.zeros(12, **meta), d=3,
                  bidirectional=True)
+
+
+def _stand_in_tensorflow():
+    # the launcher tells TensorFlow's own JAX from the port's by this name
+    sys.modules.setdefault("tensorflow", types.ModuleType("tensorflow"))
+
+
+def _imports_jax_itself(mesh):
+    _stand_in_tensorflow()
+    import jax  # noqa: F401
+
+
+def _tensorflow_loads_jax(mesh):
+    _stand_in_tensorflow()
+    importlib.import_module("jax")
+
+
+@pytest.mark.parametrize("task", [_imports_jax_itself, _tensorflow_loads_jax])
+def test_a_rank_that_imports_jax_fails_even_beside_tensorflow(task):
+    """A rank whose own code imports JAX fails, TensorFlow loaded or not;
+    JAX that TensorFlow (TensorBoard's backend) loads is not the port's."""
+    from tpuseg_torch.parallel import run_ranks
+
+    if task is _tensorflow_loads_jax:
+        assert run_ranks(task, 1, device="cpu", timeout=120) == [None]
+        return
+    with pytest.raises(RuntimeError, match=r"imported \['jax \(by test_"):
+        run_ranks(task, 1, device="cpu", timeout=120)

@@ -19,13 +19,15 @@ gloo ranks against one process and against the JAX package's mesh.
   faked CPU devices: parameters and BN statistics under
   ``test_fit_mesh.py``'s tolerances (rtol 5e-3, atol 1.6e-2), the logged
   cost within 2e-2.
-* A rank that raises fails the run at once, with its traceback.
+* A rank that raises fails the run at once, with its traceback; the join
+  waits as long as the ranks run unless it is given a deadline.
 
 Every spawned run joins with its own time limit; a rank that imports JAX,
 flax or the JAX package fails (``parallel/mesh.py::_rank_entry``).
 """
 
 import dataclasses
+import time
 
 import jax
 import numpy as np
@@ -45,6 +47,7 @@ from tpuseg_torch.models import ReSeg
 from tpuseg_torch.parallel import (
     Mesh, make_mesh, pad_to_multiple, run_ranks, shard_batch, tasks,
 )
+from tpuseg_torch.parallel import mesh as mesh_module
 from tpuseg_torch.weights import load_flax, to_flax
 
 LIMIT = 300  # seconds a spawned run may take
@@ -130,18 +133,23 @@ def test_batch_norm_over_two_ranks_matches_one_process():
 
 
 @pytest.mark.parametrize("b", [4, 3])
-def test_train_step_over_two_ranks_matches_one_process(variables, b):
+def test_train_step_over_two_ranks_matches_one_process(tmp_path, variables, b):
+    """The step runs inside ``trace_context``: its all-reduces are read
+    from the trace (one per rank and collective, none in one process)."""
     cfg = _cfg(cvppp_config)
     state = _model_state(cfg, variables)
     batch = _batch(1, b)
-    two = run_ranks(tasks.train_steps, 2, (cfg, state, [batch]), device="cpu",
-                    timeout=LIMIT)
+    two = run_ranks(tasks.train_steps, 2, (cfg, state, [batch], None, 0,
+                                           str(tmp_path / "two")),
+                    device="cpu", timeout=LIMIT)
     # one process on the batch the ranks see: sample 0 repeated to a
     # multiple of 2
     padded = {k: pad_to_multiple(v, 2)[0] for k, v in batch.items()}
-    one = tasks.train_steps(make_mesh(1, "cpu"), cfg, state, [padded])
+    one = tasks.train_steps(make_mesh(1, "cpu"), cfg, state, [padded],
+                            trace_dir=str(tmp_path / "one"))
     assert two[0]["step"] == two[1]["step"] == one["step"] == 1
-    assert two[0]["collectives_per_step"] > 0
+    assert two[0]["collectives_per_step"] == two[1]["collectives_per_step"] > 0
+    assert two[0]["collective_ms_per_step"] > 0
     assert one["collectives_per_step"] == 0
     for k, want in one["model"].items():
         a, c = two[0]["model"][k], two[1]["model"][k]
@@ -190,6 +198,27 @@ def _load(cfg, state):
     model = ReSeg(cfg)
     model.load_state_dict(state)
     return model
+
+
+@pytest.mark.parametrize("deadline", [None, 0.5])
+def test_the_join_waits_for_every_rank_or_its_deadline(deadline):
+    """Without a deadline the join waits as long as the ranks run; with
+    one, it raises when the deadline passes."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=time.sleep, args=(s,)) for s in (0.1, 2.0)]
+    for p in procs:
+        p.start()
+    try:
+        if deadline is None:
+            mesh_module._join(procs, ["", ""], deadline)
+            assert [p.exitcode for p in procs] == [0, 0]
+        else:
+            with pytest.raises(TimeoutError, match=r"ranks \[1\] still running"):
+                mesh_module._join(procs, ["", ""], deadline)
+    finally:
+        for p in procs:
+            p.kill()
+            p.join()
 
 
 def test_a_failing_rank_fails_the_run():

@@ -30,7 +30,9 @@ ranks start; each rank reads the same loader order from the same seed and
 takes its slice of every global batch of ``--batchsize``; ``--model``
 resumes on rank 0, which ``fit`` broadcasts; rank 0 logs and saves.  NCCL
 when every rank has its own card, else gloo (ranks sharing a card, or
-``--device cpu``).
+``--device cpu``).  The run has no deadline: a rank that dies ends it at
+once, and a rank whose collective waits ``CLI_COLLECTIVE_TIMEOUT_S`` for a
+peer fails.
 """
 
 from __future__ import annotations
@@ -58,6 +60,13 @@ from tpuseg_torch.runtime.checkpoint import restore_checkpoint
 from tpuseg_torch.runtime.loop import fit
 from tpuseg_torch.runtime.state import create_train_state
 from tpuseg_torch.settings import default_data_paths, get_config
+
+
+# the longest the other ranks wait at a collective for a peer: rank 0
+# alone writes the logs, the checkpoints and the debug dumps while they
+# wait at the epoch's barrier
+CLI_COLLECTIVE_TIMEOUT_S = 1800.0
+
 
 def generate_run_id() -> str:
     """Reference train.py:46-56 format: date_time_user_random."""
@@ -164,8 +173,10 @@ def main(argv=None) -> dict:
         from tpuseg_torch.kernels import build
 
         build.build()
+    # no deadline for the run; a rank that dies ends it at once
     ranks = run_ranks(_train, n_dev, (opt, cfg, run_dir, device.type),
-                      device=device.type)
+                      device=device.type, timeout=None,
+                      collective_timeout=CLI_COLLECTIVE_TIMEOUT_S)
     return dict(ranks[0], rank_launches=[r["launches"] for r in ranks])
 
 

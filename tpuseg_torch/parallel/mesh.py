@@ -6,8 +6,10 @@ XLA inserts the all-reduces wherever the program reduces over the batch
 (gradient and metric means, BatchNorm statistics, the REINFORCE baseline).
 Here each rank is a process with its own replica of the state:
 
-* ``run_ranks`` spawns the ranks and joins them with a time limit; each
-  rank joins the default process group and runs ``task(mesh, *args)``;
+* ``run_ranks`` spawns the ranks and joins them, failing the run at the
+  first rank that fails (a collective that waits too long for a peer
+  fails its rank), with an optional deadline for the whole run; each rank
+  joins the default process group and runs ``task(mesh, *args)``;
 * ``shard_batch`` gives rank r the rows ``[r*b/N, (r+1)*b/N)`` of the
   global batch, as ``P('data')`` does; ``pad_to_multiple`` first pads a
   batch that does not divide, by repeating sample 0;
@@ -23,7 +25,7 @@ a card or run on the CPU (rank r on ``cuda:(r % device_count)``).
 
 from __future__ import annotations
 
-import contextlib
+import builtins
 import dataclasses
 import datetime
 import multiprocessing.connection
@@ -32,7 +34,7 @@ import sys
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Iterator, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -182,29 +184,6 @@ def _to_cpu(obj):
 
 # ------------------------- collectives -------------------------------
 
-# (op, shape, dtype) of each collective run while a log is open
-_LOG: Optional[List[tuple]] = None
-
-
-@contextlib.contextmanager
-def logged_collectives() -> Iterator[List[tuple]]:
-    """Within the block, every all-reduce of the model code and the steps
-    appends ``(op, shape, dtype)`` to the yielded list (to replay and time
-    a step's collectives apart from its compute: ``replay_ms``)."""
-    global _LOG
-    old, _LOG = _LOG, []
-    try:
-        yield _LOG
-    finally:
-        _LOG = old
-
-
-def _all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM) -> None:
-    if _LOG is not None:
-        _LOG.append((op, tuple(t.shape), t.dtype))
-    dist.all_reduce(t, op=op)
-
-
 class _AllReduceSum(torch.autograd.Function):
     """Sum over the ranks whose backward sums the cotangents over the
     ranks: each rank's input feeds every rank's loss."""
@@ -212,13 +191,13 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         y = x.clone()
-        _all_reduce(y)
+        dist.all_reduce(y)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        _all_reduce(g)
+        dist.all_reduce(g)
         return g
 
 
@@ -247,7 +226,7 @@ def batch_min(x: torch.Tensor) -> torch.Tensor:
     m = x.min()
     if world_size() > 1:
         m = m.clone()
-        _all_reduce(m, op=dist.ReduceOp.MIN)
+        dist.all_reduce(m, op=dist.ReduceOp.MIN)
     return m
 
 
@@ -256,30 +235,7 @@ def mean_over_ranks_(tensors: Sequence[torch.Tensor]) -> None:
     one all-reduce per dtype of a flat buffer."""
     n = world_size()
     if n > 1 and tensors:
-        _flat(tensors, lambda flat: (_all_reduce(flat), flat.div_(n)))
-
-
-def replay_ms(log: Sequence[tuple], device) -> float:
-    """Milliseconds one pass of the logged all-reduces takes back to back
-    on zero tensors of their shapes (the device synchronised around; the
-    mean of 3 passes after one untimed)."""
-    repeats = 3
-    bufs = [(op, torch.zeros(shape, dtype=dtype, device=device))
-            for op, shape, dtype in log]
-
-    def sync():
-        if torch.device(device).type == "cuda":
-            torch.cuda.synchronize(device)
-
-    for op, t in bufs:  # warm-up pass
-        dist.all_reduce(t, op=op)
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(repeats):
-        for op, t in bufs:
-            dist.all_reduce(t, op=op)
-    sync()
-    return 1e3 * (time.perf_counter() - t0) / repeats
+        _flat(tensors, lambda flat: (dist.all_reduce(flat), flat.div_(n)))
 
 
 def barrier(mesh: Optional[Mesh]) -> None:
@@ -295,13 +251,37 @@ _FOREIGN = ("jax", "jaxlib", "flax", "tpuseg")
 def _foreign_modules() -> List[str]:
     """The modules of JAX, flax or the JAX package loaded in this process.
     TensorFlow (TensorBoard's backend where it is installed) loads JAX
-    itself; that JAX is not the port's."""
+    itself; that JAX is not the port's (``_watch_imports`` sees the port's
+    own imports of JAX whoever loaded it first)."""
     roots = _FOREIGN[2:] if "tensorflow" in sys.modules else _FOREIGN
     return sorted(m for m in sys.modules if m.split(".")[0] in roots)
 
 
+def _watch_imports(task: Callable) -> List[str]:
+    """From here on, every ``import`` statement in the port or in the
+    task's module that names JAX, flax or the JAX package is appended to
+    the returned list, whether or not the module is loaded already."""
+    ours = {"tpuseg_torch", "__main__", "__mp_main__",
+            task.__module__.split(".")[0]}
+    seen: List[str] = []
+    real = builtins.__import__
+
+    def watched(name, globals=None, locals=None, fromlist=(), level=0):
+        importer = (globals or {}).get("__name__", "")
+        if (level == 0 and name.split(".")[0] in _FOREIGN
+                and importer.split(".")[0] in ours):
+            seen.append(f"{name} (by {importer})")
+        return real(name, globals, locals, fromlist, level)
+
+    builtins.__import__ = watched
+    return seen
+
+
 def _rank_entry(rank, world, init_method, device_type, backend, threads,
-                task, args, out_path):
+                collective_timeout, task, args, out_path):
+    # the task's module (imported to unpickle the task) loaded before this
+    loaded = _foreign_modules()
+    seen = _watch_imports(task)
     torch.set_num_threads(threads)
     device = rank_device(rank, device_type)
     if device.type == "cuda":
@@ -309,11 +289,11 @@ def _rank_entry(rank, world, init_method, device_type, backend, threads,
     try:
         dist.init_process_group(
             backend, init_method=init_method, world_size=world, rank=rank,
-            timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S),
+            timeout=datetime.timedelta(seconds=collective_timeout),
             device_id=device if backend == "nccl" else None)
         dist.barrier()  # every rank is up (and the backend's collectives run)
         result = task(make_mesh(world, device_type), *args)
-        foreign = _foreign_modules()
+        foreign = sorted(set(loaded + _foreign_modules() + seen))
         if foreign:
             raise RuntimeError(f"rank {rank} imported {foreign[:5]}: the "
                                "port's ranks run the port alone")
@@ -335,16 +315,18 @@ def _load_result(path: str, rank: int):
 
 def run_ranks(task: Callable, n_ranks: int, args: Sequence = (),
               device="cuda", backend: Optional[str] = None,
-              timeout: float = 900.0) -> List[Any]:
+              timeout: Optional[float] = None,
+              collective_timeout: float = COLLECTIVE_TIMEOUT_S) -> List[Any]:
     """Run ``task(mesh, *args)`` on ``n_ranks`` spawned processes, each in
     the default process group (rendezvous through a file in a fresh
     temporary directory), and return the ranks' results in rank order.
 
     ``task`` and ``args`` are pickled (a task is a module-level function of
     an importable module).  A rank that raises or dies fails the run at
-    once, the others are killed; so does a run that outlasts ``timeout``
-    seconds.  Each rank gets this process's torch threads divided among
-    the ranks."""
+    once, the others are killed; so does a rank whose collective waits
+    ``collective_timeout`` seconds for a peer, and a run that outlasts
+    ``timeout`` seconds (None: no deadline for the whole run).  Each rank
+    gets this process's torch threads divided among the ranks."""
     device_type = resolve_device(device).type
     backend = backend or default_backend(n_ranks, device_type)
     cards = torch.cuda.device_count() if device_type == "cuda" else 0
@@ -357,8 +339,9 @@ def run_ranks(task: Callable, n_ranks: int, args: Sequence = (),
         init = f"file://{os.path.join(tmp, 'rendezvous')}"
         outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(n_ranks)]
         procs = [ctx.Process(target=_rank_entry, args=(
-            r, n_ranks, init, device_type, backend, threads, task, tuple(args),
-            outs[r])) for r in range(n_ranks)]
+            r, n_ranks, init, device_type, backend, threads,
+            collective_timeout, task, tuple(args), outs[r]))
+            for r in range(n_ranks)]
         for p in procs:
             p.start()
         try:
@@ -375,14 +358,14 @@ def run_ranks(task: Callable, n_ranks: int, args: Sequence = (),
     return [res["result"] for res in results]
 
 
-def _join(procs, outs, timeout: float) -> None:
+def _join(procs, outs, timeout: Optional[float]) -> None:
     """Wait for every rank; raise at the first that exits non-zero or when
-    ``timeout`` runs out."""
-    deadline = time.monotonic() + timeout
+    ``timeout`` (None: none) runs out."""
+    deadline = None if timeout is None else time.monotonic() + timeout
     live = {p.sentinel: (r, p) for r, p in enumerate(procs)}
     while live:
-        left = deadline - time.monotonic()
-        if left <= 0:
+        left = None if deadline is None else deadline - time.monotonic()
+        if left is not None and left <= 0:
             raise TimeoutError(
                 f"ranks {sorted(r for r, _ in live.values())} still running "
                 f"after {timeout:.0f} s")

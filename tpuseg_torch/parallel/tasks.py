@@ -11,8 +11,10 @@ to (``tests/test_torch_parallel.py``, ``chip_smoke.py``).
 from __future__ import annotations
 
 import contextlib
+import json
+import os
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -21,9 +23,9 @@ from tpuseg_torch.configs import Config
 from tpuseg_torch.kernels.ir_chain import ir_chain
 from tpuseg_torch.kernels.masked_softmax import masked_softmax
 from tpuseg_torch.parallel.mesh import (
-    Mesh, logged_collectives, pad_and_shard, replay_ms, replicate,
-    shard_batch,
+    Mesh, pad_and_shard, replicate, shard_batch,
 )
+from tpuseg_torch.utils.tracing import TRACE_FILE, trace_context
 
 
 def _cpu_state(model) -> Dict[str, torch.Tensor]:
@@ -85,15 +87,32 @@ def batch_norm_grads(mesh: Mesh, x: np.ndarray, grad_y: np.ndarray,
         ("running_var", b.running_var))}
 
 
+def _all_reduces(trace_dir: str) -> Tuple[int, float]:
+    """(count, summed ms) of the all-reduce spans in a trace that
+    ``trace_context`` wrote: the backend's ``gloo:all_reduce`` /
+    ``nccl:all_reduce`` annotations on the host timeline (the trace
+    mirrors each onto the card's too), each from its enqueue to its end,
+    so the wait for the peers counts."""
+    with open(os.path.join(trace_dir, TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e["dur"] for e in events if e.get("ph") == "X"
+             and e.get("cat") == "user_annotation"
+             and e.get("name", "").endswith(":all_reduce")]
+    return len(spans), 1e-3 * sum(spans)
+
+
 def train_steps(mesh: Mesh, cfg: Config, model_state,
                 batches: Sequence[dict], dtype: Optional[torch.dtype] = None,
-                warmup: int = 0) -> Dict:
+                warmup: int = 0, trace_dir: Optional[str] = None) -> Dict:
     """``warmup`` untimed, then the rest of ``batches`` timed, through
     ``make_train_step`` from ``model_state``; each global batch padded
-    and sharded over the mesh.  Returns the final model state, the step,
-    each timed step's metrics, the timed seconds, the kernel launches, the
-    all-reduces a timed step and the ms the last step's take replayed
-    alone.  ``dtype=torch.float32`` turns TF32 off."""
+    and sharded over the mesh.  With ``trace_dir`` the last batch's step
+    runs untimed inside ``trace_context`` (``<trace_dir>/rank<r>``), and
+    its all-reduces are counted and timed from that trace.  Returns the
+    final model state, the step, the metrics of each step after the
+    warm-up, the timed steps and their seconds and kernel launches, and
+    the traced step's all-reduces and their ms.  ``dtype=torch.float32``
+    turns TF32 off."""
     from tpuseg_torch.runtime.train import make_train_step
 
     state = _train_state(mesh, cfg, model_state)
@@ -103,30 +122,31 @@ def train_steps(mesh: Mesh, cfg: Config, model_state,
     gen = torch.Generator(device=mesh.device)
     gen.manual_seed(cfg.train.seed)
     shards = [pad_and_shard(b, mesh) for b in batches]
+    timed = shards[warmup:len(shards) - (trace_dir is not None)]
     with _numerics(dtype):
         for b in shards[:warmup]:
             step(state, b, gen)
         _sync(mesh.device)
         before = kernel_launches()
-        metrics, marks = [], [0]
-        with logged_collectives() as log:
-            t0 = time.perf_counter()
-            for b in shards[warmup:]:
-                metrics.append(step(state, b, gen)[1])
-                marks.append(len(log))
-            _sync(mesh.device)
-            seconds = time.perf_counter() - t0
-    launches = _since(before)
-    n = max(len(shards) - warmup, 1)
+        metrics = []
+        t0 = time.perf_counter()
+        for b in timed:
+            metrics.append(step(state, b, gen)[1])
+        _sync(mesh.device)
+        seconds = time.perf_counter() - t0
+        launches = _since(before)
+        collectives, collective_ms = 0, 0.0
+        if trace_dir is not None:
+            traced = os.path.join(trace_dir, f"rank{mesh.rank}")
+            with trace_context(traced):
+                metrics.append(step(state, shards[-1], gen)[1])
+            collectives, collective_ms = _all_reduces(traced)
     return {
         "model": _cpu_state(state.model), "step": state.step,
         "metrics": [{k: float(v) for k, v in m.items()} for m in metrics],
-        "seconds": seconds, "steps": len(shards) - warmup,
-        "launches": launches,
-        "collectives_per_step": len(log) / n,
-        # the last step's all-reduces, replayed alone
-        "collective_ms_per_step": (replay_ms(log[marks[-2]:], mesh.device)
-                                   if mesh.size > 1 else 0.0),
+        "seconds": seconds, "steps": len(timed), "launches": launches,
+        "collectives_per_step": collectives,
+        "collective_ms_per_step": collective_ms,
     }
 
 

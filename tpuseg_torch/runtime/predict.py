@@ -32,9 +32,11 @@ the model per device (replica i on ``cuda:(i % device_count)``, every one
 on the CPU when the predictor is), the batch size rounded to a multiple of
 them, each batch split on its leading axis and the outputs gathered in
 order.  Inference reduces nothing over the batch, so this is one process.
-The replicas run one after another from the calling thread: each round
-loop syncs the host once a round, so on several cards they do not
-overlap.
+The replicas run one after another from the calling thread, so they do
+not overlap on several cards.  A thread a replica measured slower, not
+faster: the round loops are paced by the host, whose dispatch the threads
+contend for (PERF.md, PR 10); serving several cards at once wants a
+process a card.
 """
 
 from __future__ import annotations

@@ -1,12 +1,14 @@
 """Time the batched-inference main path of one checkout of the port.
 
-    python tpuseg_torch/tools/ab_infer.py <tree root> [n_images] [repeats]
+    python tpuseg_torch/tools/ab_infer.py <tree root> [n_images] [repeats] \
+        [n_devices]
 
 Imports ``tpuseg_torch`` from ``<tree root>`` (which also holds
 ``assets/synthetic_ckpt.msgpack``), builds its ``ir_chain`` kernel, and
 runs ``Predictor.predict_batch_packed`` at B=32 in bfloat16 over synthetic
 hard scenes: one warm-up batch, then ``repeats`` timed passes; prints the
-img/s of each pass.  To compare two commits on one card, unpack the other
+img/s of each pass.  ``n_devices`` > 1 times the mesh predictor
+(``use_mesh=True``: that many replicas, replica i on card i % cards).  To compare two commits on one card, unpack the other
 one with ``git archive`` into a directory ``.gitignore`` lists and run
 parent, change, change, parent within one call: host-side time varies
 between machines by more than most changes do.
@@ -21,6 +23,7 @@ def main(argv) -> int:
     root = os.path.abspath(argv[1])
     n_images = int(argv[2]) if len(argv) > 2 else 128
     repeats = int(argv[3]) if len(argv) > 3 else 3
+    n_devices = int(argv[4]) if len(argv) > 4 else 1
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -44,8 +47,9 @@ def main(argv) -> int:
     rng = np.random.default_rng(7)
     imgs = np.stack([make_scene(rng, 256, 256, hard=True)[0]
                      for _ in range(n_images)])
+    mesh = dict(use_mesh=True, n_devices=n_devices) if n_devices > 1 else {}
     pred = Predictor(cfg, model, batch_size=32, device="cuda",
-                     stop_params=load_stop_params())
+                     stop_params=load_stop_params(), **mesh)
     batches = [imgs[i:i + 32] for i in range(0, n_images, 32)]
     pred.predict_batch_packed(batches[0])
     torch.cuda.synchronize()
@@ -57,7 +61,9 @@ def main(argv) -> int:
             packed.cpu(), counts.cpu()
         torch.cuda.synchronize()
         rates.append(n_images / (time.perf_counter() - t))
-    print(argv[1], "img/s", [round(r, 2) for r in rates], flush=True)
+    print(argv[1], f"replicas {len(pred.replicas)} on "
+          f"{torch.cuda.device_count()} card(s): img/s",
+          [round(r, 2) for r in rates], flush=True)
     return 0
 
 
