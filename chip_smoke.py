@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (``ir_chain``, ``masked_softmax``,
-``sru_scan``) from
+Builds the port's CUDA kernels (``ir_chain``, ``masked_softmax`` with its
+split-row entry points, ``sru_scan``) from
 ``tpuseg_torch/kernels/csrc`` with ``nvcc`` (sm_90a), then:
 
 1. holds the ``ir_chain`` kernel against its plain PyTorch version at the
@@ -137,11 +137,30 @@ Builds the port's CUDA kernels (``ir_chain``, ``masked_softmax``,
     improving epoch and no other, the live rows on stdout, TensorBoard
     events or the writer's skip line (which is printed), finite costs,
     each rank's launches counted; then ``pred_list --ndevices 2 --f32`` on
-    eval_hard64 (its artifacts equal to item 10's f32 on 64/64 images)
-    and ``evaluate``;
+    eval_hard64 (two rank processes on the card, each with its own whole
+    batches: artifacts equal to item 10's f32 on 64/64 images, 20
+    ``ir_chain`` launches a round of each rank, img/s of 2 ranks beside
+    item 10's one process) and ``evaluate``;
 21. runs one of item 3's batches inside ``utils.tracing.trace_context``,
     a ``StepTimer`` around it: a Chrome trace with the card's kernels is
-    written, one time recorded.
+    written, one time recorded;
+22. holds the split-row entry points of ``masked_softmax`` (spatial
+    training's: each rank's partial (max, sum of exp), then p from the
+    combined pairs; the row dots all-reduced between the backward's two
+    launches) against their plain versions at item 4's shapes with each
+    image's rows cut in two: p within 1e-6 and de (training path's g)
+    within 1e-5 of max|de| of the whole-row plain version; times one half
+    of (8, 32, 65536) beside the plain pieces, the library calls and the
+    bytes bound;
+23. drives the spatial (H-sharded) path, ``parallel/spatial.py``, over 2
+    gloo ranks on the card against one process: instance inference at
+    full width on two 512 x 512 synthetic scenes in f32 (id maps and counts
+    equal, semantic within rtol 2e-4 / atol 2e-5, no gather of a
+    full-size map, each rank's ``ir_chain`` launches), bf16 ms a batch of
+    the ranks beside one process's; training at 256 x 256, f32, 2 SGD
+    steps under deterministic glimpses (parameters within rtol 5e-3 / atol
+    1.6e-2 of one process), each rank's launches of the split entry points
+    (2 a direction and step, and no whole-row launch).
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises: the
@@ -2356,7 +2375,6 @@ def phase_dp_cli(work, eval_lst, smi):
     import torch
 
     from tpuseg_torch.cli import evaluate, pred_list, train
-    from tpuseg_torch.kernels.ir_chain import ir_chain
     from tpuseg_torch.kernels.masked_softmax import (
         BACKWARD_LAUNCHES, FORWARD_LAUNCHES,
     )
@@ -2418,15 +2436,13 @@ def phase_dp_cli(work, eval_lst, smi):
                 or lc["ir_chain"] <= 0 or lc["ir_chain"] % 20):
             raise AssertionError(f"dp-cli train rank {r} launches {lc}")
 
-    # pred_list over two replicas, f32: phase 11's f32 artifacts
+    # pred_list over two rank processes, f32: phase 11's f32 artifacts
     here = os.path.dirname(os.path.abspath(__file__))
     with open(eval_lst) as f:
         images = [q for q in f.read().splitlines() if q]
     names = [os.path.splitext(os.path.basename(q))[0] for q in images]
     want = _per_image(os.path.join(work, "eval", "pred_f32"), names)
-    made = _recording_predictors()
     d = os.path.join(work, "pred_list_ndevices2")
-    ir_chain.launches = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
     pred_list.main(["--lst", eval_lst, "--model",
@@ -2435,8 +2451,9 @@ def phase_dp_cli(work, eval_lst, smi):
                     "--ndevices", "2", "--output", d])
     torch.cuda.synchronize()
     p_wall = time.perf_counter() - t
-    p_launches = ir_chain.launches
-    rounds = [r.rounds_run for r in made[-1].replicas]
+    ranks = list(pred_list.last_ranks)
+    rounds = [r["rounds"] for r in ranks]
+    p_launches = [r["launches"]["ir_chain"] for r in ranks]
     got = _per_image(d, names)
     same = sum(got[k] == want[k] for k in names)
     scores = evaluate.main(["--pred_dir", d, "--dataset", "CVPPP",
@@ -2444,21 +2461,29 @@ def phase_dp_cli(work, eval_lst, smi):
                             "--img_dir", os.path.dirname(images[0]),
                             "--device", "cuda"])
     out.update({"pred_list_artifacts_equal_f32": same,
-                "pred_list_ir_chain_launches": p_launches,
-                "pred_list_rounds_per_replica": rounds,
-                "pred_list_wall_s": p_wall, "sbd": scores[0],
-                "abs_dic": scores[1], "fg_dice": scores[2]})
-    log(f"  dp-cli pred_list --ndevices 2 --f32 on eval_hard64: artifacts "
-        f"(counts, id-map sha256) equal to phase 11's f32 on {same}/64; "
-        f"{p_launches} ir_chain launches over rounds {rounds}; evaluate SBD "
-        f"{scores[0]:.6f} |DiC| {scores[1]:.4f} FG {scores[2]:.6f}; wall "
-        f"{p_wall:.2f} s [{smi}]")
-    if same != 64 or len(rounds) != 2:
-        raise AssertionError(f"pred_list --ndevices 2: {same}/64 equal")
-    if p_launches == 0 or p_launches != 5 * 4 * sum(rounds):
-        raise AssertionError(
-            f"pred_list --ndevices 2: ir_chain launches {p_launches} for "
-            f"rounds {rounds}")
+                "pred_list_ir_chain_launches_per_rank": p_launches,
+                "pred_list_rounds_per_rank": rounds,
+                "pred_list_images_per_rank": [r["images"] for r in ranks],
+                "pred_list_rank_seconds": [r["seconds"] for r in ranks],
+                "pred_list_wall_s": p_wall,
+                "pred_list_img_per_s_2_ranks": len(names) / p_wall,
+                "sbd": scores[0], "abs_dic": scores[1], "fg_dice": scores[2]})
+    log(f"  dp-cli pred_list --ndevices 2 --f32 on eval_hard64 (2 rank "
+        f"processes, images a rank {out['pred_list_images_per_rank']}): "
+        f"artifacts (counts, id-map sha256) equal to phase 11's f32 on "
+        f"{same}/64; ir_chain launches a rank {p_launches} over rounds "
+        f"{rounds}; evaluate SBD {scores[0]:.6f} |DiC| {scores[1]:.4f} FG "
+        f"{scores[2]:.6f}; wall {p_wall:.2f} s = {len(names) / p_wall:.2f} "
+        f"img/s incl. the ranks' start, weights and PNG writes (each rank's "
+        f"images took {out['pred_list_rank_seconds']} s) [{smi}]")
+    if same != 64 or len(rounds) != 2 or 0 in out["pred_list_images_per_rank"]:
+        raise AssertionError(f"pred_list --ndevices 2: {same}/64 equal, "
+                             f"images a rank {out['pred_list_images_per_rank']}")
+    for n_l, n_r in zip(p_launches, rounds):
+        if n_l == 0 or n_l != 5 * 4 * n_r:
+            raise AssertionError(
+                f"pred_list --ndevices 2: ir_chain launches {p_launches} for "
+                f"rounds {rounds}")
     return out
 
 
@@ -2492,6 +2517,245 @@ def phase_trace(cfg, model, dev, stop, batch, root, smi):
         f"(profiler on) [{smi}]")
     if not kernels or not named or out["timer_count"] != 1:
         raise AssertionError(f"trace: {out}")
+    return out
+
+
+def split_halves(e, mask, side):
+    """The rows of each (B, HW) / (B, N, HW) image cut in two, as two ranks
+    of a spatial mesh hold them: [(e_half, mask_half), ...] contiguous."""
+    b, n, _ = mask.shape
+    cut = [(0, side // 2), (side // 2, side)]
+    img_e = e.reshape(b, side, side)
+    img_m = mask.reshape(b, n, side, side)
+    return [(img_e[:, a:z].reshape(b, -1).contiguous(),
+             img_m[:, :, a:z].reshape(b, n, -1).contiguous()) for a, z in cut]
+
+
+def phase_split_softmax(dev, smi):
+    """The split-row entry points of masked_softmax (spatial training's)
+    against their plain versions at phase 5's shapes with each image's rows
+    cut in two: the two halves' partials combined, p against the whole-row
+    plain version (1e-6), de with the training path's g against autograd
+    through it (1e-5 of max|de|); then timed at (8, 32, 65536) (one half:
+    (8, 32, 32768)) beside the plain pieces, the library calls and the
+    bytes bound."""
+    import torch
+
+    from tpuseg_torch.kernels import masked_softmax as ms
+    from tpuseg_torch.parallel.spatial import _combine_stats
+
+    rows, max_p_err, max_de_rel = [], 0.0, 0.0
+    rng = np.random.default_rng(11)
+    g_cpu = torch.Generator(device="cpu").manual_seed(1)
+    for b, side in ((2, 256), (8, 256), (2, 255)):
+        e, mask, _ = softmax_inputs(rng, g_cpu, b, side, dev)
+        n = mask.shape[1]
+        g, active = softmax_cotangent(mask, "main", seed=b * 1000 + side)
+        halves = split_halves(e, mask, side)
+        gs = [h[1] for h in split_halves(torch.zeros_like(e), g, side)]
+        with torch.no_grad():
+            parts = [ms.masked_softmax_stats(eh, mh) for eh, mh in halves]
+            for (eh, mh), part in zip(halves, parts):
+                want = ms.masked_softmax_stats_plain(eh, mh)
+                if not torch.allclose(part, want, rtol=1e-5, atol=1e-6):
+                    raise AssertionError("split stats differ from plain")
+            stats = _combine_stats(parts)
+            ps = [ms.masked_softmax_apply(eh, mh, stats) for eh, mh in halves]
+            dots = sum(ms.masked_softmax_row_dots(p, gh)
+                       for p, gh in zip(ps, gs))
+            des = [ms.masked_softmax_tiles(p, gh, dots)
+                   for p, gh in zip(ps, gs)]
+        ep = e.clone().requires_grad_()
+        pp = ms.masked_softmax_plain(ep, mask)
+        (dp,) = torch.autograd.grad(pp, ep, g)
+        got_p = torch.cat([p.reshape(b, n, -1, side) for p in ps], dim=2)
+        got_de = torch.cat([d.reshape(b, -1, side) for d in des], dim=1)
+        p_err = (got_p.reshape(b, n, -1) - pp.detach()).abs().max().item()
+        de_scale = dp.abs().max().item()
+        de_rel = (got_de.reshape(b, -1) - dp).abs().max().item() / de_scale
+        if not (torch.isfinite(got_p).all() and torch.isfinite(got_de).all()):
+            raise AssertionError("split masked_softmax: non-finite output")
+        if not (p_err <= 1e-6 and de_rel <= 1e-5):
+            raise AssertionError(
+                f"split masked_softmax ({b},{n},{side * side}): max|p err| "
+                f"{p_err:.3e} (1e-6), max|de err| / max|de| {de_rel:.3e} "
+                f"(1e-5)")
+        max_p_err, max_de_rel = max(max_p_err, p_err), max(max_de_rel, de_rel)
+        row = {"shape": [b, n, side * side], "half_shape": list(
+            halves[0][1].shape), "max_p_err": p_err, "max_de_rel_err": de_rel,
+            "active_rows": active}
+        if b == 8:
+            eh, mh = halves[0]
+            p0, g0 = ps[0], gs[0]
+            hw = eh.shape[1]
+            act0 = int((g0 != 0).any(dim=-1).sum())
+
+            def fwd():
+                return ms.masked_softmax_apply(
+                    eh, mh, ms.masked_softmax_stats(eh, mh))
+
+            def bwd():
+                return ms.masked_softmax_tiles(
+                    p0, g0, ms.masked_softmax_row_dots(p0, g0))
+
+            def fwd_plain():
+                return ms.masked_softmax_apply_plain(
+                    eh, mh, ms.masked_softmax_stats_plain(eh, mh))
+
+            def bwd_plain():
+                return ms.masked_softmax_tiles_plain(
+                    p0, g0, ms.masked_softmax_row_dots_plain(p0, g0))
+
+            logits = torch.where(mh > 0, eh[:, None, :],
+                                 torch.full_like(eh[:, None, :], -1e30))
+            with torch.no_grad():
+                row["forward_ms"] = cuda_ms(fwd, 20)
+                row["backward_ms"] = cuda_ms(bwd, 20)
+                row["forward_device_ms"] = kernel_device_ms(
+                    fwd, 10, "masked_softmax_", launches=2)
+                row["backward_device_ms"] = kernel_device_ms(
+                    bwd, 10, "masked_softmax_", launches=2)
+                row["plain_forward_ms"] = cuda_ms(fwd_plain, 20)
+                row["plain_backward_ms"] = cuda_ms(bwd_plain, 20)
+                row["library_ms"] = cuda_ms(
+                    lambda: torch.softmax(logits, dim=-1), 20) + cuda_ms(
+                    lambda: torch._softmax_backward_data(
+                        g0, p0, -1, torch.float32), 20)
+            del logits
+            fb, bb = softmax_bound_ms(b, n, hw, act0)
+            row.update(bound_forward_ms=fb, bound_backward_ms=bb,
+                       active_rows_half=act0)
+            log(f"  split masked_softmax, one half {row['half_shape']}: "
+                f"forward (stats + apply) {row['forward_ms']:.4f} ms "
+                f"(device {row['forward_device_ms']}, plain "
+                f"{row['plain_forward_ms']:.3f}, bound {fb:.4f}); backward "
+                f"(row dots + tiles, {act0} rows nonzero) "
+                f"{row['backward_ms']:.4f} ms (device "
+                f"{row['backward_device_ms']}, plain "
+                f"{row['plain_backward_ms']:.3f}, bound {bb:.4f}); "
+                f"torch.softmax + _softmax_backward_data "
+                f"{row['library_ms']:.4f} ms [{smi}]")
+        rows.append(row)
+        del e, mask, g, halves, gs, ps, des, dp, pp, ep
+    log(f"  split masked_softmax vs plain: max|p err| {max_p_err:.3e}, "
+        f"max|de err| / max|de| {max_de_rel:.3e}")
+    torch.cuda.empty_cache()
+    return rows, max_p_err, max_de_rel
+
+
+SPATIAL_SIDE = 512       # spatial inference: 2 ranks at 512 x 512
+SPATIAL_TRAIN_SIDE = 256
+
+
+def phase_spatial(cfg, model, dev, stop, smi):
+    """The spatial (H-sharded) path of ``parallel/spatial.py`` over 2 gloo
+    ranks on the card against one process: inference at full width on two
+    512 x 512 synthetic scenes, f32 (id maps and counts equal, semantic
+    within rtol 2e-4 / atol 2e-5), each rank's ir_chain launches, then bf16
+    ms a batch beside one process's; training at 256 x 256, f32, 2 SGD
+    steps under deterministic glimpses (parameters within rtol 5e-3 / atol
+    1.6e-2), each rank's launches of masked_softmax's split entry points."""
+    import dataclasses
+
+    import torch
+
+    from tpuseg_torch.data.synthetic import make_batch, make_scene
+    from tpuseg_torch.parallel import make_mesh, run_ranks, tasks
+
+    sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(41)
+    imgs = np.stack([make_scene(rng, SPATIAL_SIDE, SPATIAL_SIDE, hard=True)[0]
+                     for _ in range(2)])
+    tcfg = dataclasses.replace(
+        cfg, decoder=dataclasses.replace(cfg.decoder, deterministic_glimpse=True,
+                                         drop_rate=0.0),
+        train=dataclasses.replace(cfg.train, optimizer="SGD",
+                                  learning_rate=0.01, batch_size=2))
+    batches = [make_batch(rng, 2, SPATIAL_TRAIN_SIDE, SPATIAL_TRAIN_SIDE,
+                          cfg.data.max_n_objects, hard=True)] * 2
+    f32, bf16 = torch.float32, torch.bfloat16
+    calls = [(tasks.spatial_infer, (cfg, sd, [imgs], None, stop, f32, True)),
+             (tasks.spatial_infer, (cfg, sd, [imgs], None, stop, bf16, False,
+                                    3)),
+             (tasks.spatial_train, (tcfg, sd, batches, f32, True))]
+    t0 = time.perf_counter()
+    ranks = run_ranks(tasks.in_turn, 2, args=(calls,), device=dev.type,
+                      timeout=900)
+    rank_s = time.perf_counter() - t0
+    one = make_mesh(1, dev)
+    t0 = time.perf_counter()
+    ref = [task(one, *args) for task, args in calls]
+    one_s = time.perf_counter() - t0
+    want = ref[0]["outs"][0]
+    idmap = torch.cat([r[0]["outs"][0]["idmap"] for r in ranks], dim=1)
+    sem = torch.cat([r[0]["outs"][0]["sem"] for r in ranks], dim=2)
+    same_id = float((idmap == want["idmap"]).float().mean())
+    counts = [r[0]["outs"][0]["counts"].tolist() for r in ranks]
+    sem_err = (sem - want["sem"]).abs().max().item()
+    sem_ok = torch.allclose(sem, want["sem"], rtol=2e-4, atol=2e-5)
+    launches = [r[0]["launches"]["ir_chain"] for r in ranks]
+    gathers = [c for c in ranks[0][0]["comms"] if c["op"] == "gather"]
+    halos = sum(c["op"] == "halo" for c in ranks[0][0]["comms"])
+    worst = 0.0
+    for k, v in ref[2]["model"].items():
+        if v.dtype.is_floating_point:
+            for r in ranks:
+                ex = ((r[2]["model"][k] - v).abs() - 5e-3 * v.abs()).max()
+                worst = max(worst, float(ex))
+    split = [(r[2]["launches"]["masked_softmax_split_forward"],
+              r[2]["launches"]["masked_softmax_split_backward"],
+              r[2]["launches"]["masked_softmax_forward"]) for r in ranks]
+    out = {
+        "infer_idmap_agreement": same_id, "infer_counts": counts,
+        "infer_counts_one_process": want["counts"].tolist(),
+        "infer_sem_max_err": sem_err,
+        "infer_rounds": [r[0]["rounds"] for r in ranks],
+        "infer_rounds_one_process": ref[0]["rounds"],
+        "ir_chain_launches_per_rank": launches,
+        "ir_chain_launches_one_process": ref[0]["launches"]["ir_chain"],
+        "infer_halos_rank0": halos,
+        "infer_gathers_rank0": [c["shape"] for c in gathers],
+        "bf16_ms_per_batch_ranks": [r[1]["ms_per_batch"] for r in ranks],
+        "bf16_ms_per_batch_one_process": ref[1]["ms_per_batch"],
+        "train_param_excess_over_rtol": worst,
+        "train_costs": [m["cost"] for m in ranks[0][2]["metrics"]],
+        "train_costs_one_process": [m["cost"] for m in ref[2]["metrics"]],
+        "split_launches_per_rank": [{"forward": f, "backward": b}
+                                    for f, b, _ in split],
+        "rank_seconds": rank_s, "one_process_seconds": one_s,
+    }
+    log(f"  spatial inference, 2 ranks on one card vs one process, f32 "
+        f"{SPATIAL_SIDE}x{SPATIAL_SIDE} B=2 full width: id maps agree on "
+        f"{same_id:.6f}, counts {counts} vs {want['counts'].tolist()}, rounds "
+        f"{out['infer_rounds']} vs {ref[0]['rounds']}, semantic max|err| "
+        f"{sem_err:.3e}; ir_chain launches a rank {launches} (one process "
+        f"{out['ir_chain_launches_one_process']}); rank 0 moved {halos} halos "
+        f"and gathered {out['infer_gathers_rank0']}; bf16 ms a batch: ranks "
+        f"{out['bf16_ms_per_batch_ranks']} vs one process "
+        f"{ref[1]['ms_per_batch']:.1f} (both ranks share one card, and each "
+        f"halo crosses host memory through gloo) [{smi}]")
+    log(f"  spatial training, 2 ranks, f32 {SPATIAL_TRAIN_SIDE}^2 B=2, 2 SGD "
+        f"steps: parameters' largest excess over rtol 5e-3 {worst:.3e} (atol "
+        f"1.6e-2), costs {out['train_costs']} vs {out['train_costs_one_process']}"
+        f"; masked_softmax split launches a rank (forward, backward) "
+        f"{[(f, b) for f, b, _ in split]}; ranks {rank_s:.1f} s, one process "
+        f"{one_s:.1f} s [{smi}]")
+    if same_id != 1.0 or any(c != want["counts"].tolist() for c in counts):
+        raise AssertionError(f"spatial inference differs from one process: {out}")
+    if not sem_ok:
+        raise AssertionError(f"spatial semantic max|err| {sem_err:.3e}")
+    if min(launches) <= 0:
+        raise AssertionError(f"spatial inference: ir_chain launches {launches}")
+    if any(max(c["shape"][2:]) >= SPATIAL_SIDE for c in gathers):
+        raise AssertionError(f"spatial inference gathered a full-size map: "
+                             f"{out['infer_gathers_rank0']}")
+    if worst > 1.6e-2:
+        raise AssertionError(f"spatial training parameters off by {worst:.3e}")
+    for f, b, whole in split:
+        if f != 2 * len(batches) or b != 2 * len(batches) or whole != 0:
+            raise AssertionError(
+                f"spatial training launches: split forward {f}, backward {b}, "
+                f"whole-row forward {whole} for {len(batches)} steps")
     return out
 
 
@@ -2792,6 +3056,16 @@ def main() -> int:
         trace = phase_trace(cfg, model, dev, stop, batches[0],
                             os.path.join(work, "trace"), smi)
         log(f"phase trace: {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 23: the split-row masked_softmax entry points vs plain
+        t0 = time.perf_counter()
+        split_rows, split_p_err, split_de_rel = phase_split_softmax(dev, smi)
+        log(f"phase split-softmax: {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 24: spatial inference and training over 2 ranks
+        t0 = time.perf_counter()
+        spatial_run = phase_spatial(cfg, model, dev, stop, smi)
+        log(f"phase spatial: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2812,13 +3086,14 @@ def main() -> int:
         "staged": staged, "bucketed": bucketed, "pred_cli": pred_cli,
         "cluster": cluster, "debug": debug, "dp_fit": dp_fit,
         "mesh_predict": mesh_pred, "dp_cli": dp_cli, "trace": trace,
-        "seconds": time.perf_counter() - t_all,
+        "spatial": spatial_run, "seconds": time.perf_counter() - t_all,
     }
     log("summary " + json.dumps(summary))
     log("ir_chain rows " + json.dumps(rows))
     log("masked_softmax rows " + json.dumps(sm_rows))
     log("sru_scan rows " + json.dumps(sru_rows))
     log("ir_chain bucket rows " + json.dumps(bucket_rows))
+    log("masked_softmax split rows " + json.dumps(split_rows))
     # the training path's scan: uni, k = 3, identity, dropout mask, 35 steps
     sru_main = [r for r in sru_rows if r["length"] == SRU_LM["length"]
                 and not r["bidirectional"] and r["activation"] == 0
@@ -2826,6 +3101,7 @@ def main() -> int:
     sru_note = ("no PyTorch call computes the SRU recurrence: the plain "
                 "version is a loop of elementwise calls over time")
     sm8 = [r for r in sm_rows if r["shape"][0] == 8][0]
+    split8 = [r for r in split_rows if r["shape"][0] == 8][0]
     kernels = {"kernels": [{
         "name": "ir_chain",
         "route": "cuda",
@@ -2879,9 +3155,14 @@ def main() -> int:
         # decodes of train --ndevices 2 (each rank's)
         "launches_mesh_predict": mesh_pred["ir_chain_launches"],
         "mesh_predict_rounds_per_replica": mesh_pred["rounds_per_replica"],
-        "launches_pred_list_ndevices2": dp_cli["pred_list_ir_chain_launches"],
-        "pred_list_ndevices2_rounds_per_replica":
-            dp_cli["pred_list_rounds_per_replica"],
+        # pred_list --ndevices 2: each rank process's launches and rounds
+        "launches_pred_list_ndevices2":
+            dp_cli["pred_list_ir_chain_launches_per_rank"],
+        "pred_list_ndevices2_rounds_per_rank":
+            dp_cli["pred_list_rounds_per_rank"],
+        # phase 24: spatial inference over 2 ranks (each rank's launches on
+        # its rows plus halos, windows cut at the ranks' rows)
+        "launches_spatial_infer": spatial_run["ir_chain_launches_per_rank"],
         "launches_train_ndevices2_validation": [
             r["ir_chain"] for r in dp_cli["rank_launches"]],
         # per bucket level shape: ms a call (events), device ms a launch
@@ -2943,6 +3224,32 @@ def main() -> int:
                         "(B, N, HW) logits + torch._softmax_backward_data(g, "
                         "p, -1, float32) (the per-row part; the sum over "
                         "the instances is extra)",
+        # phase 24: spatial training's split entry points, each rank
+        "launches_spatial_train_split": spatial_run["split_launches_per_rank"],
+    }, {
+        "name": "masked_softmax_split",
+        "route": "cuda",
+        "source": "tpuseg_torch/kernels/csrc/masked_softmax.cu",
+        "replaces": "tpuseg/kernels/masked_softmax.py:38",
+        # phase 24: 2 SGD steps of spatial training, each rank's stats +
+        # apply (forward) and row dots + tiles (backward) launches
+        "launches": sum(d["forward"] + d["backward"]
+                        for d in spatial_run["split_launches_per_rank"]),
+        "launches_per_rank": spatial_run["split_launches_per_rank"],
+        "checked": True,
+        "max_abs_err": split_p_err,
+        "max_rel_err_backward": split_de_rel,
+        # one rank's half of the (8, 32, 65536) training shape: forward +
+        # backward (training path's g), device time where traced
+        "ms": (split8["forward_device_ms"] or split8["forward_ms"])
+        + (split8["backward_device_ms"] or split8["backward_ms"]),
+        "event_ms": split8["forward_ms"] + split8["backward_ms"],
+        "plain_ms": split8["plain_forward_ms"] + split8["plain_backward_ms"],
+        "bound_ms": split8["bound_forward_ms"] + split8["bound_backward_ms"],
+        "bound_by": "bytes",
+        "library_ms": split8["library_ms"],
+        "library_call": "torch.softmax on the half's masked logits + "
+                        "torch._softmax_backward_data (no collective)",
     }, {
         "name": "sru_scan_forward",
         "route": "cuda",

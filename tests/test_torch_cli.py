@@ -370,8 +370,8 @@ def test_train_cli_ranks_run_without_a_deadline(tmp_path, monkeypatch):
 
 
 def test_pred_list_over_two_devices_equals_one(tmp_path):
-    """``pred_list --ndevices 2 --device cpu`` (two replicas, two images
-    each) on the first 4 images of eval_hard64 at full width writes the
+    """``pred_list --ndevices 2 --device cpu`` (two rank processes; one
+    batch of 4, so rank 0 predicts it) on the first 4 images of eval_hard64 at full width writes the
     files ``--ndevices 1`` writes, byte for byte, and those hold the JAX
     package's counts and id maps."""
     from tpuseg_torch.cli import pred_list
@@ -394,6 +394,40 @@ def test_pred_list_over_two_devices_equals_one(tmp_path):
         assert (dirs[0] / rel).read_bytes() == (dirs[1] / rel).read_bytes()
     want = json.loads(REFERENCE.read_text())["images"][:n]
     assert _per_image(str(dirs[1]), lst) == want
+
+
+def test_pred_list_ranks_take_whole_batches_of_an_uneven_list(
+        tmp_path, monkeypatch):
+    """``pred_list --ndevices 2 --device cpu`` on 5 images at batch size 2
+    (3 batches, the last one short): rank 0 takes the first two batches
+    and rank 1 the third; every image's 5 files come out, byte for byte
+    those of ``--ndevices 1`` (tiny configuration, seeded random init)."""
+    from tpuseg_torch.cli import pred_list
+    from tpuseg_torch.data.eval_asset import default_asset_prefix, materialize_eval_tree
+    from tpuseg_torch.settings import get_config
+
+    monkeypatch.setattr(pred_list, "get_config",
+                        lambda ds: _tiny(get_config(ds)))
+    n = 5
+    lst = materialize_eval_tree(default_asset_prefix(), str(tmp_path / "tree"))
+    lst = _lst_head(lst, n, str(tmp_path / "meta"))
+    dirs = []
+    for n_dev in ("1", "2"):
+        dirs.append(tmp_path / f"pred{n_dev}")
+        pred_list.main(["--lst", lst, "--model", str(tmp_path / "none.ckpt"),
+                        "--dataset", "CVPPP", "--batchsize", "2", "--f32",
+                        "--device", "cpu", "--ndevices", n_dev,
+                        "--output", str(dirs[-1])])
+    assert [r["images"] for r in pred_list.last_ranks] == [4, 1]
+    with open(lst) as f:
+        names = [os.path.splitext(os.path.basename(q))[0]
+                 for q in f.read().split()]
+    files = sorted(p.relative_to(dirs[0]) for p in dirs[0].rglob("*")
+                   if p.is_file())
+    assert sorted({f.parts[0] for f in files}) == sorted(names)
+    assert len(files) == 5 * n
+    for rel in files:
+        assert (dirs[0] / rel).read_bytes() == (dirs[1] / rel).read_bytes()
 
 
 def test_train_cli_runs_resumes_and_serves(tmp_path, monkeypatch):

@@ -61,6 +61,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     for name in ("parallel", "parallel.mesh", "parallel.tasks",
                  "utils.tracing", "utils.validation", "losses.lovasz"):
         assert f"tpuseg_torch.{name}" in res["imported"], name
+    # and the spatial slice's
+    assert "tpuseg_torch.parallel.spatial" in res["imported"]
     assert res["bad"] == []
 
 

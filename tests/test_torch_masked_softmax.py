@@ -2,7 +2,9 @@
 kernel (interpret mode on the CPU, as ``tests/test_hard_attention_pallas.py``
 runs it) and the ``jnp`` path of ``HardAttention``; its autograd gradient
 against ``jax.grad`` of the ``jnp`` path; the backward kernels' formula
-against autograd; the Hopper kernels against the plain version on the card.
+against autograd; the Hopper kernels against the plain version on the card,
+and the split-row entry points of spatial training (two halves of each row
+combined) against the whole-row plain version on the card.
 
 The port's layout is ``mask (B, N, HW)``, the JAX package's ``(B, HW, N)``.
 JAX is imported inside the tests that use it, so the card test runs where
@@ -262,3 +264,55 @@ def test_kernel_branches_on_card():
     assert torch.isnan(de[0]).any() and not torch.isnan(de[1]).any()
     ok = ~torch.isnan(want)
     assert (de[ok] - want[ok]).abs().max().item() <= 1e-5 * want[ok].abs().max()
+
+
+@pytest.mark.cuda
+def test_split_entry_points_match_plain_on_card():
+    """The split-row entry points (``masked_softmax_stats`` / ``_apply`` /
+    ``_row_dots`` / ``_tiles``) on the card, each against its plain
+    version, and over the two halves of every row, combined as the ranks
+    of ``parallel/spatial.py`` combine them, against the whole-row plain
+    version: p within 1e-6, de within 1e-5 max|de|; 2 launches a direction
+    and half."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpuseg_torch.kernels import masked_softmax as ms
+    from tpuseg_torch.parallel.spatial import _combine_stats
+
+    dev = torch.device("cuda")
+    for b, n, hw in [(2, 32, 65536), (3, 5, 4100), (2, 7, 4098)]:
+        e, mask = _inputs(b, n, hw, seed=hw % 1000)
+        cot = _cotangent(mask, "main", seed=hw % 991)
+        et, mt, gt = (torch.from_numpy(a).to(dev) for a in (e, mask, cot))
+        cut = [slice(0, hw // 2), slice(hw // 2, hw)]
+        halves = [(et[:, c].contiguous(), mt[:, :, c].contiguous(),
+                   gt[:, :, c].contiguous()) for c in cut]
+        before = (ms.masked_softmax.split_forward_launches,
+                  ms.masked_softmax.split_backward_launches)
+        parts = [ms.masked_softmax_stats(eh, mh) for eh, mh, _ in halves]
+        for (eh, mh, _), part in zip(halves, parts):
+            want = ms.masked_softmax_stats_plain(eh, mh)
+            torch.testing.assert_close(part, want, rtol=1e-5, atol=1e-6)
+        stats = _combine_stats(parts)
+        ps = [ms.masked_softmax_apply(eh, mh, stats) for eh, mh, _ in halves]
+        for (eh, mh, _), p in zip(halves, ps):
+            torch.testing.assert_close(
+                p, ms.masked_softmax_apply_plain(eh, mh, stats), rtol=0,
+                atol=1e-6)
+        dots = sum(ms.masked_softmax_row_dots(p, gh)
+                   for p, (_, _, gh) in zip(ps, halves))
+        des = [ms.masked_softmax_tiles(p, gh, dots)
+               for p, (_, _, gh) in zip(ps, halves)]
+        torch.cuda.synchronize()
+        assert (ms.masked_softmax.split_forward_launches,
+                ms.masked_softmax.split_backward_launches) == (
+            before[0] + 4, before[1] + 4)
+        er = et.clone().requires_grad_()
+        pr = masked_softmax_plain(er, mt)
+        (pr * gt).sum().backward()
+        p = torch.cat(ps, dim=2)
+        de = torch.cat(des, dim=1)
+        assert torch.isfinite(p).all() and torch.isfinite(de).all()
+        assert (p - pr).abs().max().item() <= 1e-6, (b, n, hw)
+        scale = er.grad.abs().max().item()
+        assert (de - er.grad).abs().max().item() <= 1e-5 * scale, (b, n, hw)

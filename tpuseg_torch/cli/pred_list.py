@@ -19,9 +19,13 @@ each image near its native size on a shape-bucket canvas and writes masks
 pixel-aligned with it.  ``--window`` / ``--window_stride`` default to the
 environment variables ``TPUSEG_EXTRACT_WINDOW`` /
 ``TPUSEG_EXTRACT_WINDOW_STRIDE`` (-1 when unset: the config's values).
-``--ndevices N`` (0: every card) splits each batch over N replicas of
-the model (``Predictor(use_mesh=True)``; the batch size rounds to a
-multiple of N).
+``--ndevices N`` (0: every card) runs N rank processes
+(``parallel/mesh.py::run_ranks``, rank r on ``cuda:(r % cards)``, all on
+the CPU with ``--device cpu``): the batch size rounds to a multiple of N,
+as in the JAX CLI, the image list is cut into batches of that size, and
+each rank takes a contiguous run of whole batches (the first ranks one
+more where they do not divide), predicts them with its own ``Predictor``
+and writes its own images' files.  The ranks make no collective.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import torch
 
 from tpuseg_torch import resolve_device
 from tpuseg_torch.cli.common import colorize_instances, load_model
+from tpuseg_torch.parallel.mesh import Mesh, run_ranks
 from tpuseg_torch.runtime.predict import Predictor
 from tpuseg_torch.settings import get_config
 from tpuseg_torch.utils.checkpoint_io import load_stop_params
@@ -81,6 +86,54 @@ def _parser():
     return p
 
 
+def write_artifacts(output_path: str, res) -> None:
+    """One image's five files under ``<output_path>/<image name>/``."""
+    from PIL import Image
+
+    name = os.path.splitext(os.path.basename(res["path"]))[0]
+    out_dir = os.path.join(output_path, name)
+    os.makedirs(out_dir, exist_ok=True)
+    fg = (res["fg_mask"] * 255).astype(np.uint8)
+    ins = res["ins_mask"].astype(np.uint8)
+    Image.fromarray(res["image"]).save(os.path.join(out_dir, name + ".png"))
+    Image.fromarray(fg).save(os.path.join(out_dir, name + "-fg_mask.png"))
+    Image.fromarray(ins).save(os.path.join(out_dir, name + "-ins_mask.png"))
+    Image.fromarray(colorize_instances(ins)).save(
+        os.path.join(out_dir, name + "-ins_mask_color.png"))
+    np.save(os.path.join(out_dir, name + "-n_objects.npy"),
+            np.asarray(res["n_objects"]))
+
+
+def list_shard(n_images: int, batch_size: int, mesh: Mesh) -> slice:
+    """Rank ``mesh.rank``'s images: a contiguous run of the whole batches
+    of ``batch_size`` that one process would form, the first ranks taking
+    one batch more where the batches do not divide over the ranks (a rank
+    may get none)."""
+    n_batches = -(-n_images // batch_size)
+    per, extra = divmod(n_batches, mesh.size)
+    first = mesh.rank * per + min(mesh.rank, extra)
+    last = first + per + (mesh.rank < extra)
+    return slice(first * batch_size, min(last * batch_size, n_images))
+
+
+def predict_and_write(predictor: Predictor, paths, output_path: str,
+                      bucketed: bool = False) -> int:
+    """Predict ``paths`` in order and write each image's files; returns
+    the number written."""
+    predict = (predictor.predict_paths_bucketed if bucketed
+               else predictor.predict_paths)
+    n = 0
+    for res in predict([str(p) for p in paths]):
+        write_artifacts(output_path, res)
+        n += 1
+    return n
+
+
+# the ranks' results of the last ``--ndevices N`` run of ``main`` (N > 1):
+# per rank, its images, extraction rounds and kernel launches
+last_ranks: list = []
+
+
 def main(argv=None):
     t_start = time.perf_counter()
     opt = _parser().parse_args(argv)
@@ -89,7 +142,6 @@ def main(argv=None):
                              if device.type == "cuda" else 1)
     if opt.dataset != "CVPPP":
         raise ValueError(f"unknown dataset {opt.dataset}")
-    from PIL import Image
 
     images_list = np.loadtxt(opt.lst, dtype="str", delimiter=",", ndmin=1)
     subset = os.path.basename(opt.lst).split("_")[0]
@@ -112,37 +164,37 @@ def main(argv=None):
         dec = dataclasses.replace(dec, extract_window_stride=opt.window_stride)
     cfg = dataclasses.replace(cfg, decoder=dec)
     cfg, model = load_model(cfg, opt.model)
-    predictor = Predictor(
-        cfg, model, batch_size=opt.batchsize, stop_params=load_stop_params(),
-        device=device, dtype=torch.float32 if opt.f32 else None,
-        staged=bool(opt.staged), use_mesh=n_dev > 1,
-        n_devices=n_dev if n_dev > 1 else None,
-    )
-    t_ready = time.perf_counter()
+    paths = [str(p) for p in images_list]
+    pred_kw = dict(stop_params=load_stop_params(),
+                   dtype=torch.float32 if opt.f32 else None,
+                   staged=bool(opt.staged))
+    if n_dev > 1:
+        from tpuseg_torch.parallel import tasks
 
-    names = [os.path.splitext(os.path.basename(p))[0] for p in images_list]
-    predict = (predictor.predict_paths_bucketed if opt.bucketed
-               else predictor.predict_paths)
-    for name, res in zip(names, predict([str(p) for p in images_list])):
-        out_dir = os.path.join(output_path, name)
-        os.makedirs(out_dir, exist_ok=True)
-        fg = (res["fg_mask"] * 255).astype(np.uint8)
-        ins = res["ins_mask"].astype(np.uint8)
-        Image.fromarray(res["image"]).save(os.path.join(out_dir, name + ".png"))
-        Image.fromarray(fg).save(os.path.join(out_dir, name + "-fg_mask.png"))
-        Image.fromarray(ins).save(os.path.join(out_dir, name + "-ins_mask.png"))
-        Image.fromarray(colorize_instances(ins)).save(
-            os.path.join(out_dir, name + "-ins_mask_color.png"))
-        np.save(os.path.join(out_dir, name + "-n_objects.npy"),
-                np.asarray(res["n_objects"]))
+        # the JAX CLI's rounding of the batch size to the devices
+        batch_size = max(opt.batchsize // n_dev, 1) * n_dev
+        state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        t_ready = time.perf_counter()
+        last_ranks[:] = run_ranks(
+            tasks.pred_list_rank, n_dev, device=device.type,
+            args=(cfg, state, paths, batch_size, output_path, pred_kw,
+                  bool(opt.bucketed)))
+        n_written = sum(r["images"] for r in last_ranks)
+    else:
+        predictor = Predictor(cfg, model, batch_size=opt.batchsize,
+                              device=device, **pred_kw)
+        t_ready = time.perf_counter()
+        n_written = predict_and_write(predictor, paths, output_path,
+                                      bool(opt.bucketed))
     t_done = time.perf_counter()
     print(
         f"timing: setup+weights {t_ready - t_start:.1f}s, inference+artifacts "
-        f"{t_done - t_ready:.1f}s ({len(names) / max(t_done - t_ready, 1e-9):.1f}"
-        f" img/s incl. host PNG writes) on {device}",
+        f"{t_done - t_ready:.1f}s ({n_written / max(t_done - t_ready, 1e-9):.1f}"
+        f" img/s incl. host PNG writes) on {device}"
+        + (f" ({n_dev} ranks)" if n_dev > 1 else ""),
         file=sys.stderr,
     )
-    print(f"wrote {len(names)} predictions to {output_path}")
+    print(f"wrote {n_written} predictions to {output_path}")
     return output_path
 
 

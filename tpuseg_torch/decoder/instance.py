@@ -28,6 +28,15 @@ half-to-even.
 ``debug`` is the single-glimpse forward behind the training loop's image
 dumps.
 
+Under spatial sharding (``parallel/spatial.py``) each rank holds rows of
+the same samples: the glimpse argmax is a (value, global index) reduction
+(first index on ties), the sampled glimpse a draw over the ranks' masses,
+a value at a glimpse is read on its owner and sent to all, the disks and
+point planes take global rows, every pixel sum (the foreground, the
+remaining foreground, a mask's size, the losses) runs over the ranks, and
+the batch reductions stay local.  Every branch on data reads reduced
+values, so every rank runs the same rounds and collectives.
+
 Tensors are NCHW: masks and targets ``(B, 1, h, w)``, logits
 ``(B, 2, h, w)``, instance masks ``(B, N, H, W)``.
 """
@@ -42,11 +51,13 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from tpuseg_torch.configs import DecoderConfig
-from tpuseg_torch.decoder.pyramid import AttenDecoder
+from tpuseg_torch.decoder.pyramid import _FACTORS, AttenDecoder
 from tpuseg_torch.losses.dice import dice_loss
 from tpuseg_torch.losses.focal import focal_loss, softmax_cross_entropy
 from tpuseg_torch.nn.attention import HardAttention, SpatialAttention
 from tpuseg_torch.nn.blocks import running_stats
+from tpuseg_torch.parallel import spatial
+from tpuseg_torch.parallel.spatial import DECODE_ROWS
 from tpuseg_torch.parallel.mesh import batch_mean, batch_min, batch_sum
 
 _NEG_INF = -1e30
@@ -77,15 +88,16 @@ def mask_loss(cfg: DecoderConfig, pred_logits, target01, alpha: float = 0.0,
                   map_weight=map_weight)
     ce = focal_loss(_flat2(pred_logits), t.reshape(-1), gamma=cfg.focal_gamma,
                     alpha=alpha, map_weight=map_weight)
-    return cfg.ce_weight * ce.reshape(b, -1).mean(dim=1) + d, d
+    return cfg.ce_weight * spatial.space_mean(ce.reshape(b, -1), 1) + d, d
 
 
 def pred_loss(cfg: DecoderConfig, preds, targets):
     """Pyramid-weighted mask loss: ((B,) total, (B,) dice of the finest
     level)."""
     total, d_last = 0.0, None
-    for p, t, w in zip(preds, targets, cfg.pyramid_weights):
-        multi, d_last = mask_loss(cfg, p, t)
+    for p, t, w, f in zip(preds, targets, cfg.pyramid_weights, _FACTORS):
+        with spatial.level(f, DECODE_ROWS):
+            multi, d_last = mask_loss(cfg, p, t)
         total = total + multi * w
     return total, d_last
 
@@ -94,7 +106,7 @@ def alpha_entropy(cfg: DecoderConfig, alpha, mask) -> torch.Tensor:
     """Entropy regulariser over the glimpse distribution restricted to the
     instance's pixels."""
     a = alpha.clamp(cfg.entropy_clamp_lo, cfg.entropy_clamp_hi)
-    return (-a * torch.log(a) * cfg.entropy_normal * mask).sum()
+    return spatial.space_sum(-a * torch.log(a) * cfg.entropy_normal * mask)
 
 
 def evaluate_masks(pred_last, target_last, time: int = 1,
@@ -129,9 +141,10 @@ def stop_scalars(cfg: DecoderConfig, stop_params: Optional[Sequence] = None):
     return min_frac, int(max_misses), float(suppress), stop_frac
 
 
-def disk(s, h: int, w: int, radius) -> torch.Tensor:
-    """(N, h*w) float disk of ``radius`` (N,) around flat points s (N,)."""
-    yy = torch.arange(h, device=s.device)[None, :, None]
+def disk(s, h: int, w: int, radius, row0: int = 0) -> torch.Tensor:
+    """(N, h*w) float disk of ``radius`` (N,) around flat points s (N,);
+    the rows ``row0 .. row0 + h`` of the canvas (a shard's)."""
+    yy = (torch.arange(h, device=s.device) + row0)[None, :, None]
     xx = torch.arange(w, device=s.device)[None, None, :]
     pr = (s // w)[:, None, None]
     pc = (s % w)[:, None, None]
@@ -277,12 +290,12 @@ class InstanceDecoder(nn.Module):
             alpha_sg = alpha.detach()
             if train and not cfg.deterministic_glimpse:
                 # an instance with no mass draws uniformly
-                any_mass = alpha_sg.sum(dim=1, keepdim=True) > 0
+                any_mass = spatial.space_sum(alpha_sg, 1, keepdim=True) > 0
                 weights = torch.where(any_mass, alpha_sg,
                                       torch.ones_like(alpha_sg))
-                s = torch.multinomial(weights, 1, generator=generator)[:, 0]
+                s = spatial.sample_flat(weights, generator, w)
             else:
-                s = alpha_sg.argmax(dim=1)
+                s = spatial.space_argmax(alpha_sg, w)
             points.append(s)
 
             if train:
@@ -304,7 +317,7 @@ class InstanceDecoder(nn.Module):
                 m = cfg.baseline_momentum
                 baseline_new = m * baseline + (1.0 - m) * batch_mean(log_p_y)
                 baseline = torch.where(valid > 0, baseline_new, baseline)
-                log_p_s_a = alpha.gather(1, s[:, None])[:, 0]
+                log_p_s_a = spatial.owner_value(alpha, s, w)
                 loss_2 = -(log_p_y - baseline) * torch.log(log_p_s_a + 1e-30)
                 criterion = ce_loss + batch_sum(dice_l.detach())
                 hent = alpha_entropy(cfg, alpha, target_last.reshape(b, -1))
@@ -407,6 +420,8 @@ class InstanceDecoder(nn.Module):
         b, _, h, w = sem_mask.shape
         hw = h * w
         dev = sem_mask.device
+        row0 = spatial.row_offset()
+        h_all = spatial.canvas_rows(h)
         k_static = max_instances or self.max_n_objects
         G = max(int(cfg.extract_group), 1)
         if n_rounds is None:
@@ -416,7 +431,7 @@ class InstanceDecoder(nn.Module):
         )
         f32 = torch.float32
         sem = sem_mask.to(f32).reshape(b, hw)
-        fg_px = sem.sum(dim=1)
+        fg_px = spatial.space_sum(sem, 1)
         min_pixels = torch.clamp(fg_px * min_frac, min=1.0)
         stop_pixels = torch.clamp(fg_px * stop_frac, min=1.0)
         if count_budget is None:
@@ -443,12 +458,12 @@ class InstanceDecoder(nn.Module):
         )
         if suppress > 0:
             sel_radius = torch.maximum(suppress * est_r, radius).clamp(
-                max=min(h, w) / 6.0
+                max=min(h_all, w) / 6.0
             )
         else:
             sel_radius = radius
         flat_score = score.to(f32).reshape(b, hw)
-        flat_iota = torch.arange(hw, device=dev)
+        flat_iota = torch.arange(hw, device=dev) + row0 * w
         bone = self.bone
 
         rounds = 0
@@ -463,11 +478,11 @@ class InstanceDecoder(nn.Module):
                 masked = torch.where(
                     sup > 0, flat_score, torch.full_like(flat_score, _NEG_INF)
                 )
-                s_g = masked.argmax(dim=1)
+                s_g = spatial.space_argmax(masked, w)
                 points.append(s_g)
-                peak_ok.append(sup.gather(1, s_g[:, None])[:, 0] > 0)
+                peak_ok.append(spatial.owner_value(sup, s_g, w) > 0)
                 if g + 1 < G:
-                    sup = sup * (1.0 - disk(s_g, h, w, sel_radius))
+                    sup = sup * (1.0 - disk(s_g, h, w, sel_radius, row0))
             # -- decode all G glimpses in one pyramid pass (B*G batch)
             pts = torch.stack(points, dim=1).reshape(b * G)
             preds = bone.decode_split(
@@ -480,14 +495,14 @@ class InstanceDecoder(nn.Module):
             for g in range(G):
                 s_g = points[g]
                 avail = ~done & peak_ok[g] & (count < max_count)
-                still = remaining.gather(1, s_g[:, None])[:, 0] > 0
+                still = spatial.owner_value(remaining, s_g, w) > 0
                 live = avail & still
                 # the glimpse pixel always joins its mask: progress
                 point_plane = (flat_iota[None] == s_g[:, None]).to(f32)
                 m_g = torch.clamp(
                     m_all[:, g] * remaining + point_plane * remaining, 0.0, 1.0
                 )
-                valid_inst = m_g.sum(dim=1) >= min_pixels
+                valid_inst = spatial.space_sum(m_g, 1) >= min_pixels
                 emit = live & valid_inst
                 # a degenerate mask: carve a small disk and retry elsewhere
                 miss = live & ~valid_inst
@@ -497,13 +512,13 @@ class InstanceDecoder(nn.Module):
                 count = count + emit.to(torch.int32)
                 carve = torch.where(
                     emit[:, None], m_g,
-                    torch.where(miss[:, None], disk(s_g, h, w, radius),
+                    torch.where(miss[:, None], disk(s_g, h, w, radius, row0),
                                 torch.zeros_like(m_g)),
                 )
                 remaining = remaining * (1.0 - carve)
                 misses = torch.where(emit, torch.zeros_like(misses),
                                      misses + miss.to(torch.int32))
-                rem_px = remaining.sum(dim=1)
+                rem_px = spatial.space_sum(remaining, 1)
                 done = (
                     done | (rem_px <= stop_pixels) | (misses >= max_misses)
                     | (count >= max_count)

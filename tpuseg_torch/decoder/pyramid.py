@@ -18,6 +18,15 @@ Tensors are NCHW; the chain's activations are ``channels_last`` so the
 kernel gets a contiguous NHWC view without a copy.  Window crops and
 pastes gather/scatter by the selected origin (exact, like the JAX
 package's one-hot selects).
+
+Under spatial sharding (``parallel/spatial.py``) each level runs at the
+rows of ``spatial.level(factor, DECODE_ROWS)``: sharded while each rank
+holds at least the four rows ``ir_chain`` reads as halo, replicated
+below.  The position planes and window origins take global row
+coordinates; ``ir_chain`` runs on the shard plus four halo rows each side
+(none at the image's or window's edge, where the kernel pads), and the
+rows are trimmed after.  The windowed levels run one window row origin at
+a time, each rank on its rows of the window (``_decode_windows_spatial``).
 """
 
 from __future__ import annotations
@@ -33,6 +42,8 @@ from tpuseg_torch.configs import DecoderConfig
 from tpuseg_torch.kernels.ir_chain import ir_chain, stack_chain_params
 from tpuseg_torch.nn.blocks import Conv1x1BN, InvertedResidual
 from tpuseg_torch.nn.heads import L0Head
+from tpuseg_torch.parallel import spatial
+from tpuseg_torch.parallel.spatial import DECODE_ROWS
 
 _FACTORS = (16, 8, 4, 2, 1)
 _CL = torch.channels_last
@@ -69,8 +80,8 @@ def point_level_code(point_flat, full_hw, level_hw):
     return row_l, col_l, code
 
 
-def _planes(row, col, code, h, w):
-    yy = torch.arange(h, device=row.device)
+def _planes(row, col, code, h, w, row0: int = 0):
+    yy = torch.arange(h, device=row.device) + row0
     xx = torch.arange(w, device=row.device)
     onehot = (
         (yy[None, :, None] == row[:, None, None])
@@ -79,11 +90,15 @@ def _planes(row, col, code, h, w):
     return onehot[:, None] * code[:, :, None, None]
 
 
-def point_position_planes(point_flat, full_hw, level_hw) -> torch.Tensor:
+def point_position_planes(point_flat, full_hw, level_hw, row0: int = 0,
+                          rows: Optional[int] = None) -> torch.Tensor:
     """(N, 2n+1, h, w) glimpse-position planes: the code written at the
-    level-resolution point pixel."""
+    level-resolution point pixel.  ``level_hw`` is the level's (h, w) on
+    the full canvas ``full_hw``; a shard's planes are its ``rows`` rows
+    from level row ``row0``."""
     row_l, col_l, code = point_level_code(point_flat, full_hw, level_hw)
-    return _planes(row_l, col_l, code, *level_hw)
+    h = level_hw[0] if rows is None else rows
+    return _planes(row_l, col_l, code, h, level_hw[1], row0=row0)
 
 
 def point_position_planes_win(point_flat, full_hw, level_hw, origin_rl,
@@ -179,11 +194,19 @@ def _maxpool(x, f: int):
     return x if f == 1 else F.max_pool2d(x, f, f)
 
 
-def _prev_mask_gate(pred_logits_prev, hw) -> torch.Tensor:
+def _prev_mask_gate(pred_logits_prev, hw, src=None, dst=None,
+                    crop=None) -> torch.Tensor:
     """Bilinear-resize the previous level's 2-class logits to this level
-    (always a 2x upsample here) and take the foreground softmax."""
-    m = F.interpolate(pred_logits_prev, size=tuple(hw), mode="bilinear",
-                      align_corners=False)
+    (always a 2x upsample here) and take the foreground softmax.  Under
+    spatial sharding ``src`` / ``dst`` are the two levels' rows and ``hw``
+    this rank's (h, w); ``crop`` cuts the columns of the previous level's
+    rows before the resize (a window's)."""
+    if dst is None:
+        m = F.interpolate(pred_logits_prev, size=tuple(hw), mode="bilinear",
+                          align_corners=False)
+    else:
+        m = spatial.upsample_bilinear_rows(pred_logits_prev, hw[1], src, dst,
+                                           crop)
     return torch.softmax(m, dim=1)[:, 1:2]
 
 
@@ -249,13 +272,25 @@ class _UpAttenLevel(nn.Module):
         self._folded = None  # the weights are about to move: fold anew
         return super().train(mode)
 
+    def rows(self):
+        """This level's rows under spatial sharding (None outside)."""
+        return spatial.level_rows(self.factor, DECODE_ROWS)
+
+    def prev_rows(self):
+        return spatial.level_rows(2 * self.factor, DECODE_ROWS)
+
     def transform_skip(self, x_skip, drop=None):
         """Glimpse-independent skip transform (``cross1 -> cross2``) with
-        the channel-dropout multiplier ``drop`` between the two."""
-        y = self.cross1(x_skip)
-        if drop is not None:
-            y = y * drop.to(y.dtype)
-        return self.cross2(y)
+        the channel-dropout multiplier ``drop`` between the two.  Under
+        spatial sharding it runs at the UNet's rows of the level and its
+        output (fewer channels than the skip) moves to the level's."""
+        src = spatial.level_rows(self.factor)
+        with spatial.at_rows(src):
+            y = self.cross1(x_skip)
+            if drop is not None:
+                y = y * drop.to(y.dtype)
+            y = self.cross2(y)
+        return spatial.relayout(y, src, self.rows())
 
     def conv1_const(self, skip_t, mask_all) -> torch.Tensor:
         """Glimpse-independent conv1 partial (B, out_ch, h, w) with the BN
@@ -284,11 +319,24 @@ class _UpAttenLevel(nn.Module):
         return F.conv2d(x_in, kv)
 
     def _chain(self, x, x1u):
+        """The four ``dil*`` blocks as one ``ir_chain`` call; on sharded
+        rows the call takes four halo rows each side and its output is
+        trimmed to this rank's rows."""
         params = self._params(x.dtype)["chain"]
         nhwc = lambda t: t.permute(0, 2, 3, 1).contiguous()  # noqa: E731
+        rows = spatial.rows()
+        top = h = None
+        if rows is not None and rows.sharded:
+            h, top = x.shape[2], spatial.halo_start(rows, 4)
+            x = spatial.exchange_halo(x, 4, 4, "none")
+            if x1u is not None:
+                x1u = spatial.exchange_halo(x1u.to(x.dtype), 4, 4, "none")
+            if h == 0:
+                return x
         y = ir_chain(nhwc(x), None if x1u is None else nhwc(x1u.to(x.dtype)),
                      *params)
-        return y.permute(0, 3, 1, 2)
+        y = y.permute(0, 3, 1, 2)
+        return y if top is None else y[:, :, top:top + h]
 
     def forward(self, x_prev, skip_t, point_flat, mask_pre, mask_all,
                 drops=(None, None)):
@@ -296,27 +344,32 @@ class _UpAttenLevel(nn.Module):
         this level's ``transform_skip`` output; mask_all: the semantic mask
         pooled to the level; ``drops``: the two channel-dropout multipliers
         (after conv1 and before ``dil2a``), None in eval mode."""
-        h, w = skip_t.shape[2:]
-        full = (h * self.factor, w * self.factor)
-        if self.is_first:
-            x, x1u = skip_t, None
-        else:
-            x1u = self.up(x_prev)
-            gate = 1.0 if mask_pre is None else _prev_mask_gate(mask_pre, (h, w))
-            x = torch.cat([skip_t, (x1u * gate).to(skip_t.dtype)], dim=1)
-        pos = point_position_planes(point_flat, full, (h, w))
-        x = torch.cat([x, mask_all.to(x.dtype), pos.to(x.dtype)], dim=1)
-        x = self.conv1(x)
-        if not self.training:
-            return self._chain(x.contiguous(memory_format=_CL), x1u)
-        if drops[0] is not None:
-            x = x * drops[0].to(x.dtype)
-        x = self.dil1b(self.dil1a(x))
-        if x1u is not None:
-            x = x + x1u
-        if drops[1] is not None:
-            x = x * drops[1].to(x.dtype)
-        return self.dil2b(self.dil2a(x))
+        rows, prev = self.rows(), self.prev_rows()
+        with spatial.at_rows(rows):
+            h, w = skip_t.shape[2:]
+            hg = spatial.canvas_rows(h)
+            full = (hg * self.factor, w * self.factor)
+            if self.is_first:
+                x, x1u = skip_t, None
+            else:
+                x1u = spatial.upsample_rows(x_prev, self.up, 2, prev, rows)
+                gate = 1.0 if mask_pre is None else _prev_mask_gate(
+                    mask_pre, (h, w), prev, rows)
+                x = torch.cat([skip_t, (x1u * gate).to(skip_t.dtype)], dim=1)
+            pos = point_position_planes(point_flat, full, (hg, w),
+                                        spatial.row_offset(), h)
+            x = torch.cat([x, mask_all.to(x.dtype), pos.to(x.dtype)], dim=1)
+            x = self.conv1(x)
+            if not self.training:
+                return self._chain(x.contiguous(memory_format=_CL), x1u)
+            if drops[0] is not None:
+                x = x * drops[0].to(x.dtype)
+            x = self.dil1b(self.dil1a(x))
+            if x1u is not None:
+                x = x + x1u
+            if drops[1] is not None:
+                x = x * drops[1].to(x.dtype)
+            return self.dil2b(self.dil2a(x))
 
     def call_split(self, x_prev, part, point_flat, mask_pre, group: int):
         """Per-round half of the level from its ``conv1_const`` partial.
@@ -324,20 +377,25 @@ class _UpAttenLevel(nn.Module):
         b, _, h, w = part.shape
         dt = part.dtype
         bg = point_flat.shape[0]
-        pos = point_position_planes(
-            point_flat, (h * self.factor, w * self.factor), (h, w)
-        ).to(dt)
-        x1u = None
-        if self.is_first:
-            x_in = pos
-        else:
-            x1u = self.up(x_prev).contiguous(memory_format=_CL)
-            gate = 1.0 if mask_pre is None else _prev_mask_gate(mask_pre, (h, w))
-            x_in = torch.cat([(x1u * gate).to(dt), pos], dim=1)
-        yv = self._conv1_variable(x_in, dt)
-        x = F.relu(yv.reshape(b, group, self.out_ch, h, w) + part[:, None])
-        x = x.reshape(bg, self.out_ch, h, w).contiguous(memory_format=_CL)
-        return self._chain(x, x1u)
+        rows, prev = self.rows(), self.prev_rows()
+        with spatial.at_rows(rows):
+            hg = spatial.canvas_rows(h)
+            pos = point_position_planes(
+                point_flat, (hg * self.factor, w * self.factor), (hg, w),
+                spatial.row_offset(), h).to(dt)
+            x1u = None
+            if self.is_first:
+                x_in = pos
+            else:
+                x1u = spatial.upsample_rows(x_prev, self.up, 2, prev, rows)
+                x1u = x1u.contiguous(memory_format=_CL)
+                gate = 1.0 if mask_pre is None else _prev_mask_gate(
+                    mask_pre, (h, w), prev, rows)
+                x_in = torch.cat([(x1u * gate).to(dt), pos], dim=1)
+            yv = self._conv1_variable(x_in, dt)
+            x = F.relu(yv.reshape(b, group, self.out_ch, h, w) + part[:, None])
+            x = x.reshape(bg, self.out_ch, h, w).contiguous(memory_format=_CL)
+            return self._chain(x, x1u)
 
     def call_split_win(self, x_prev, part_win, point_flat, mask_pre,
                        group: int, origin_idx, full_hw, level_stride=0):
@@ -362,6 +420,23 @@ class _UpAttenLevel(nn.Module):
         x = F.relu(yv.reshape(b, g, self.out_ch, wl, wl) + part_win)
         x = x.reshape(bg, self.out_ch, wl, wl).contiguous(memory_format=_CL)
         return self._chain(x, x1u)
+
+
+def _rows_of(x, rows, a: int, b: int):
+    """Canvas rows ``[a, b)`` of maps laid out as ``rows``: this rank's
+    slice where sharded (``[a, b)`` inside its rows), the replicated maps'
+    rows otherwise (``spatial.take_rows``)."""
+    if rows.sharded:
+        return x[:, :, a - rows.lo:b - rows.lo]
+    return spatial.take_rows(x, rows, a, b)
+
+
+def _take_cols(x, cols):
+    """Per-sample columns: x (N, C, h, w), cols (N, k) -> (N, C, h, k)."""
+    if cols is None:
+        return x
+    n, c, h, _ = x.shape
+    return x.gather(3, cols[:, None, None, :].expand(n, c, h, cols.shape[1]))
 
 
 class AttenDecoder(nn.Module):
@@ -413,6 +488,12 @@ class AttenDecoder(nn.Module):
         return [lvl.transform_skip(s, d)
                 for lvl, s, d in zip(self.levels, reversed(feats), drops)]
 
+    def _pooled(self, x, lvl, f: int):
+        """A full-resolution (B, 1, H, W) mask max-pooled to the level at
+        factor ``f``, at the level's rows under spatial sharding."""
+        return spatial.pool_rows(x, _maxpool, f,
+                                 spatial.level_rows(1), lvl.rows())
+
     def decode(self, point_flat, skips_t, sem_mask, gold=None, drops=None):
         """One full-canvas pyramid pass from transformed skips.  sem_mask
         and gold are (B, 1, H, W); each level sees them max-pooled to its
@@ -424,10 +505,13 @@ class AttenDecoder(nn.Module):
         x = prev_pred = None
         for lvl, head, skip_t, d in zip(self.levels, self.heads, skips_t,
                                         drops):
-            f = H // skip_t.shape[2]
-            targets.append(None if gold is None else _maxpool(gold, f))
-            x = lvl(x, skip_t, point_flat, prev_pred, _maxpool(sem_mask, f), d)
-            prev_pred = head(x)
+            f = lvl.factor if spatial.active() else H // skip_t.shape[2]
+            targets.append(None if gold is None
+                           else self._pooled(gold, lvl, f))
+            x = lvl(x, skip_t, point_flat, prev_pred,
+                    self._pooled(sem_mask, lvl, f), d)
+            with spatial.at_rows(lvl.rows()):
+                prev_pred = head(x)
             preds.append(prev_pred)
         return targets, preds
 
@@ -441,7 +525,9 @@ class AttenDecoder(nn.Module):
         """Per-level glimpse-independent conv1 partials at batch B."""
         H = sem_mask.shape[2]
         return [
-            lvl.conv1_const(st, _maxpool(sem_mask, H // st.shape[2]))
+            lvl.conv1_const(st, self._pooled(
+                sem_mask, lvl,
+                lvl.factor if spatial.active() else H // st.shape[2]))
             for lvl, st in zip(self.levels, skips_t)
         ]
 
@@ -455,9 +541,9 @@ class AttenDecoder(nn.Module):
         a per-glimpse ``window``-square crop.  Only ``preds[-1]`` is then
         full-resolution: it is pasted back onto the canvas with background
         logits (1, -1) outside the window.  The windowed level's
-        intermediate ``preds[-2]`` stays window-sized — extraction consumes
-        only the last."""
-        H = partials[-1].shape[2] * _FACTORS[-1]
+        intermediate ``preds[-2]`` stays window-sized (None under spatial
+        sharding) — extraction consumes only the last."""
+        H = spatial.canvas_rows(partials[-1].shape[2]) * _FACTORS[-1]
         W = partials[-1].shape[3] * _FACTORS[-1]
         plan = window_plan(H, W, window, window_stride)
         use_win = plan is not None
@@ -475,6 +561,11 @@ class AttenDecoder(nn.Module):
             f = lvl.factor
             if not (use_win and f <= 2):
                 x = lvl.call_split(x, part, point_flat, prev_pred, group)
+            elif spatial.active():
+                preds += [None, self._decode_windows_spatial(
+                    x, prev_pred, partials[i:], point_flat, group, ir, ic,
+                    window, stride, (H, W))]
+                return preds
             else:
                 wl, sl = window // f, stride // f
                 if levels[i - 1].factor > 2:
@@ -489,10 +580,84 @@ class AttenDecoder(nn.Module):
                                                  n_c, wl, sl)
                 x = lvl.call_split_win(x, part_win, point_flat, prev_pred,
                                        group, (ir, ic), (H, W), sl)
-            pred_l = head(x)
+            with spatial.at_rows(lvl.rows()):
+                pred_l = head(x)
             preds.append(pred_l)
             prev_pred = pred_l
         if use_win:
             preds[-1] = paste_window(preds[-1], onehot, n_r, n_c, (H, W),
                                      stride, fill=[1.0, -1.0])
         return preds
+
+    def _decode_windows_spatial(self, x, prev_pred, parts, point_flat,
+                                group: int, ir, ic, window: int, stride: int,
+                                full_hw) -> torch.Tensor:
+        """The two windowed levels of ``decode_split`` under spatial
+        sharding, one window row origin at a time: every glimpse of that
+        origin on each rank's rows of its window (sharded, or the whole
+        window where the level is replicated), the halos inside the
+        window, then the finest logits pasted on this rank's rows of the
+        canvas with (1, -1) outside the window.  x / prev_pred: the last
+        full-canvas level's output and logits; parts: the two windowed
+        levels' conv1 partials.  Every rank runs every origin that a
+        glimpse of the batch takes (the origins are the same on every
+        rank), so all make the same collectives."""
+        H, W = full_hw
+        levels = self.levels[-2:]
+        heads = self.heads[-2:]
+        n = point_flat.shape[0]
+        canvas = levels[-1].rows()  # full resolution, always sharded
+        dt = parts[-1].dtype
+        out = torch.empty((n, 2, canvas.hi - canvas.lo, W), dtype=dt,
+                          device=point_flat.device)
+        out[:, 0], out[:, 1] = 1.0, -1.0
+        dev = point_flat.device
+        for k in sorted(set(ir.tolist())):
+            sel = (ir == k).nonzero()[:, 0]
+            pts, cols0 = point_flat[sel], ic[sel]
+            xw, pw = x[sel], prev_pred[sel]
+            src = self.levels[-3].rows()
+            first = True
+            for lvl, head, part in zip(levels, heads, parts):
+                f = lvl.factor
+                wl, sl = window // f, stride // f
+                win = lvl.rows().window(k * sl, wl)
+                h = win.hi - win.lo
+                crop = None
+                if first:  # the previous level is on the full canvas
+                    c_prev = (cols0 * (sl // 2))[:, None] + torch.arange(
+                        wl // 2, device=dev)
+                    crop = lambda t, c=c_prev: _take_cols(t, c)  # noqa: E731
+                gate = _prev_mask_gate(pw, (h, wl), src, win, crop)
+                oc = lvl.out_ch
+                if h:
+                    a, b = win.lo // 2, -(-win.hi // 2)
+                    x_src = _rows_of(xw, src, a, b)
+                    x_src = crop(x_src) if crop else x_src
+                    x1u = lvl.up(x_src)[:, :, win.lo - 2 * a:win.lo - 2 * a + h]
+                    x1u = x1u.contiguous(memory_format=_CL)
+                    cols = (cols0 * sl)[:, None] + torch.arange(wl, device=dev)
+                    p_rows = _rows_of(part, lvl.rows(), win.lo, win.hi)
+                    part_win = _take_cols(p_rows[sel // group], cols)
+                    row_l, col_l, code = point_level_code(pts, (H, W),
+                                                          (H // f, W // f))
+                    pos = _planes(row_l - win.lo, col_l - cols0 * sl, code, h,
+                                  wl).to(dt)
+                    x_in = torch.cat([(x1u * gate).to(dt), pos], dim=1)
+                    yv = lvl._conv1_variable(x_in, dt)
+                    xx = F.relu(yv + part_win).contiguous(memory_format=_CL)
+                else:  # no rows of this window here: the halos all the same
+                    xx = x1u = torch.zeros((len(sel), oc, 0, wl), dtype=dt,
+                                           device=dev)
+                with spatial.at_rows(win):
+                    xw = lvl._chain(xx, x1u)
+                    pw = head(xw)
+                src, first = win, False
+            if h:
+                cols = (cols0 * stride)[:, None] + torch.arange(window,
+                                                                device=dev)
+                r0 = win.lo - canvas.lo
+                rr = torch.arange(r0, r0 + h, device=dev)
+                out[sel[:, None, None], :, rr[None, :, None],
+                    cols[:, None, :]] = pw.permute(0, 2, 3, 1)
+        return out

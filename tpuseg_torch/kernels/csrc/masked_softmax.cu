@@ -47,6 +47,26 @@
 // launch on a persistent grid, blocks taking rows and then the sample's
 // tiles from a counter, each tile waiting on its sample's rows, measured
 // 10-20% slower in every case.)
+//
+// Split rows.  Under spatial sharding one instance's row of H*W pixels lies
+// on several ranks, each holding some of its rows of pixels.  The split
+// entry points put a collective between the launches that the whole-row
+// kernels already separate:
+//   forward   tpuseg_masked_softmax_stats writes each row's partial
+//             (max, sum of exp(x - max)) over this rank's pixels (one block
+//             a row, pass 1 above without the bitmask); the caller combines
+//             the ranks' pairs (log-sum-exp), and tpuseg_masked_softmax_apply
+//             writes p = exp(e - M) / S where the mask is set (0 where it is
+//             not, or where the whole row has no pixel: S = 0), one thread
+//             an element;
+//   backward  tpuseg_masked_softmax_bwd_rows is the row pass (this rank's
+//             share of each row's dot and its active flag); the caller
+//             all-reduces both, then tpuseg_masked_softmax_bwd_tiles is the
+//             tile pass on the global dots and flags.  A row active on any
+//             rank is summed on every rank: where this rank's share of g is
+//             zero it still adds p * (0 - dot).
+// Each is bound by bytes like the whole-row kernels; the split forward
+// reads the mask and e twice (once a launch).
 
 #include <cuda_runtime.h>
 
@@ -371,6 +391,46 @@ masked_softmax_bwd_odd_kernel(const float* __restrict__ p,
   }
 }
 
+// grid: B * N blocks, one per (batch, instance) row: the row's (max, sum of
+// exp(x - max)) over the pixels whose mask is set, (-1e30, 0) for none.
+__global__ void __launch_bounds__(kThreads)
+masked_softmax_stats_kernel(const float* __restrict__ e,
+                            const float* __restrict__ mask,
+                            float* __restrict__ stats, int n_ins, int hw) {
+  const size_t roff = static_cast<size_t>(blockIdx.x) * hw;
+  const size_t eoff = static_cast<size_t>(blockIdx.x / n_ins) * hw;
+  MaxSum acc{kNeg, 0.f};
+  for (int i = threadIdx.x; i < hw; i += kThreads)
+    if (__ldg(mask + roff + i) > 0) push(acc, __ldg(e + eoff + i));
+  acc = block_combine(acc);
+  if (threadIdx.x == 0) {
+    stats[2 * static_cast<size_t>(blockIdx.x)] = acc.m;
+    stats[2 * static_cast<size_t>(blockIdx.x) + 1] = acc.s;
+  }
+}
+
+constexpr int kApplyThreads = 256;
+
+// grid: (pixel tiles, B * N): p = exp(e - M) / S where the mask is set and
+// the row has a pixel anywhere (S > 0), else 0.
+__global__ void __launch_bounds__(kApplyThreads)
+masked_softmax_apply_kernel(const float* __restrict__ e,
+                            const float* __restrict__ mask,
+                            const float* __restrict__ stats,
+                            float* __restrict__ p, int n_ins, int hw) {
+  const int row = blockIdx.y;
+  const int i = blockIdx.x * kApplyThreads + threadIdx.x;
+  if (i >= hw) return;
+  const float mx = __ldg(stats + 2 * row), sum = __ldg(stats + 2 * row + 1);
+  const size_t o = static_cast<size_t>(row) * hw + i;
+  float v = 0.f;
+  if (sum > 0.f && __ldg(mask + o) > 0) {
+    const float x = __ldg(e + static_cast<size_t>(row / n_ins) * hw + i);
+    v = expf(x - mx) * (1.f / sum);
+  }
+  p[o] = v;
+}
+
 }  // namespace
 
 // Base pointers 16-byte aligned (the wrapper checks them); any HW.
@@ -406,6 +466,70 @@ extern "C" int tpuseg_masked_softmax_bwd(const void* p, const void* g,
                                                        hw);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  if (hw % 4 == 0) {
+    dim3 grid((hw / 4 + kTileThreads - 1) / kTileThreads, b);
+    masked_softmax_bwd_kernel<<<grid, kTileThreads, 0, s>>>(pf, gf, dot,
+                                                            active, def, n,
+                                                            hw);
+  } else {
+    dim3 grid((hw + 4 * kTileThreads - 1) / (4 * kTileThreads), b);
+    masked_softmax_bwd_odd_kernel<<<grid, kTileThreads, 0, s>>>(
+        pf, gf, dot, active, def, n, hw);
+  }
+  return cudaGetLastError();
+}
+
+// Split rows, forward launch 1: `stats` (B * N * 2 floats) gets each row's
+// (max, sum of exp) over this rank's pixels.
+extern "C" int tpuseg_masked_softmax_stats(const void* e, const void* mask,
+                                           void* stats, int b, int n, int hw,
+                                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  masked_softmax_stats_kernel<<<b * n, kThreads, 0, s>>>(
+      static_cast<const float*>(e), static_cast<const float*>(mask),
+      static_cast<float*>(stats), n, hw);
+  return cudaGetLastError();
+}
+
+// Split rows, forward launch 2: p from the rows' combined (max, sum).
+extern "C" int tpuseg_masked_softmax_apply(const void* e, const void* mask,
+                                           const void* stats, void* p, int b,
+                                           int n, int hw, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid((hw + kApplyThreads - 1) / kApplyThreads, b * n);
+  masked_softmax_apply_kernel<<<grid, kApplyThreads, 0, s>>>(
+      static_cast<const float*>(e), static_cast<const float*>(mask),
+      static_cast<const float*>(stats), static_cast<float*>(p), n, hw);
+  return cudaGetLastError();
+}
+
+// Split rows, backward launch 1: this rank's share of each row's dot and
+// its active flag into `scratch` (the dots, then the flags as ints).
+extern "C" int tpuseg_masked_softmax_bwd_rows(const void* p, const void* g,
+                                              void* scratch, int b, int n,
+                                              int hw, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* dot = static_cast<float*>(scratch);
+  int* active = reinterpret_cast<int*>(dot + static_cast<size_t>(b) * n);
+  masked_softmax_dot_kernel<<<b * n, kThreads, 0, s>>>(
+      static_cast<const float*>(p), static_cast<const float*>(g), dot, active,
+      hw);
+  return cudaGetLastError();
+}
+
+// Split rows, backward launch 2: de from the global dots and flags in
+// `scratch` (laid out as bwd_rows writes it).
+extern "C" int tpuseg_masked_softmax_bwd_tiles(const void* p, const void* g,
+                                               const void* scratch, void* de,
+                                               int b, int n, int hw,
+                                               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* pf = static_cast<const float*>(p);
+  const float* gf = static_cast<const float*>(g);
+  const float* dot = static_cast<const float*>(scratch);
+  const int* active =
+      reinterpret_cast<const int*>(dot + static_cast<size_t>(b) * n);
+  float* def = static_cast<float*>(de);
   if (hw % 4 == 0) {
     dim3 grid((hw / 4 + kTileThreads - 1) / kTileThreads, b);
     masked_softmax_bwd_kernel<<<grid, kTileThreads, 0, s>>>(pf, gf, dot,

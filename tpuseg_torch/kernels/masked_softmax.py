@@ -24,6 +24,16 @@ what bounds the kernels (bytes) and how a 256 KB row is streamed.
 a CUDA tensor it launches the kernels or raises.  ``masked_softmax.launches``
 counts kernel launches, ``forward_launches`` and ``backward_launches`` the
 two directions (a backward call is ``BACKWARD_LAUNCHES`` launches).
+
+Split rows (spatial sharding, ``parallel/spatial.py::masked_softmax``): a
+row of pixels lies on several ranks.  Four entry points, each a launch on
+CUDA tensors and a plain version on the CPU, leave the collectives between
+them to the caller: ``masked_softmax_stats`` (each row's partial (max, sum
+of exp)), ``masked_softmax_apply`` (p from the combined pairs),
+``masked_softmax_row_dots`` (each row's share of the backward's dot and
+its active flag) and ``masked_softmax_tiles`` (de from the global dots and
+flags).  They count in ``split_forward_launches`` /
+``split_backward_launches`` (and ``launches``).
 """
 
 from __future__ import annotations
@@ -147,6 +157,153 @@ def masked_softmax_backward(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return de
 
 
+# ---------------------------- split rows --------------------------------
+
+def masked_softmax_stats_plain(e: torch.Tensor,
+                               mask: torch.Tensor) -> torch.Tensor:
+    """(B, N, 2): each row's (max, sum of exp(e - max)) over its pixels
+    whose mask is set; (-1e30, 0) for a row with none."""
+    inside = mask > 0
+    logits = torch.where(inside, e[:, None, :], e.new_full((), _NEG_INF))
+    m = logits.amax(dim=-1)
+    z = torch.where(inside, torch.exp(logits - m[..., None]),
+                    torch.zeros_like(logits))
+    return torch.stack([m, z.sum(dim=-1)], dim=-1)
+
+
+def masked_softmax_apply_plain(e: torch.Tensor, mask: torch.Tensor,
+                               stats: torch.Tensor) -> torch.Tensor:
+    """p (B, N, HW) = exp(e - M) / S where the mask is set and the row's
+    combined sum S > 0, else 0; ``stats`` (B, N, 2) holds (M, S)."""
+    m, s = stats[..., 0:1], stats[..., 1:2]
+    keep = (mask > 0) & (s > 0)
+    z = torch.exp(e[:, None, :] - m) * (1.0 / s)
+    return torch.where(keep, z, torch.zeros_like(z))
+
+
+def masked_softmax_row_dots_plain(p: torch.Tensor,
+                                  g: torch.Tensor) -> torch.Tensor:
+    """(2, B, N): each row's ``sum p * g`` and whether its ``g`` is nonzero
+    anywhere (1.0 / 0.0; NaN counts as nonzero)."""
+    return torch.stack([(p * g).sum(dim=-1),
+                        (g != 0).any(dim=-1).to(torch.float32)])
+
+
+def masked_softmax_tiles_plain(p: torch.Tensor, g: torch.Tensor,
+                               dots: torch.Tensor) -> torch.Tensor:
+    """de (B, HW) = sum over the active rows of p * (g - dot), from the
+    (2, B, N) global dots and flags (summed flags: > 0 is active)."""
+    active = (dots[1] > 0)[..., None]
+    t = p * (g - dots[0][..., None])
+    return torch.where(active, t, torch.zeros_like(t)).sum(dim=1)
+
+
+def _split_fns():
+    lib = build.load("masked_softmax")
+    fns = (lib.tpuseg_masked_softmax_stats, lib.tpuseg_masked_softmax_apply,
+           lib.tpuseg_masked_softmax_bwd_rows,
+           lib.tpuseg_masked_softmax_bwd_tiles)
+    if fns[0].argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fns[0].argtypes = [p, p, p, i, i, i, p]
+        fns[1].argtypes = [p, p, p, p, i, i, i, p]
+        fns[2].argtypes = [p, p, p, i, i, i, p]
+        fns[3].argtypes = [p, p, p, p, i, i, i, p]
+        for f in fns:
+            f.restype = ctypes.c_int
+    return fns
+
+
+def _launched(err: int, what: str, direction: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"masked_softmax {what} launch failed: "
+                           f"cudaError {err}")
+    masked_softmax.launches += 1
+    if direction == "forward":
+        masked_softmax.split_forward_launches += 1
+    else:
+        masked_softmax.split_backward_launches += 1
+
+
+def masked_softmax_stats(e: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Split rows, forward 1: (B, N, 2) partial (max, sum of exp) per row of
+    this rank's pixels.  CPU: the plain version; CUDA: one launch."""
+    if e.device.type == "cpu":
+        return masked_softmax_stats_plain(e, mask)
+    _check(e, mask)
+    b, n, hw = mask.shape
+    stats = torch.empty((b, n, 2), dtype=torch.float32, device=e.device)
+    err = _split_fns()[0](e.data_ptr(), mask.data_ptr(), stats.data_ptr(),
+                          b, n, hw, build.stream_handle(e.device))
+    _launched(err, "stats", "forward")
+    return stats
+
+
+def masked_softmax_apply(e: torch.Tensor, mask: torch.Tensor,
+                         stats: torch.Tensor) -> torch.Tensor:
+    """Split rows, forward 2: p (B, N, HW) from the rows' combined (max,
+    sum) ``stats`` (B, N, 2).  CPU: the plain version; CUDA: one launch."""
+    if e.device.type == "cpu":
+        return masked_softmax_apply_plain(e, mask, stats)
+    _check(e, mask)
+    b, n, hw = mask.shape
+    stats = stats.to(torch.float32).contiguous()
+    if stats.shape != (b, n, 2) or stats.device != e.device:
+        raise ValueError("masked_softmax_apply: stats must be (B, N, 2) on "
+                         "e's device")
+    p = torch.empty((b, n, hw), dtype=torch.float32, device=e.device)
+    err = _split_fns()[1](e.data_ptr(), mask.data_ptr(), stats.data_ptr(),
+                          p.data_ptr(), b, n, hw,
+                          build.stream_handle(e.device))
+    _launched(err, "apply", "forward")
+    return p
+
+
+def _check_pg(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    if p.dtype != torch.float32 or p.dim() != 3 or not p.is_contiguous():
+        raise ValueError("masked_softmax split backward: p must be a "
+                         "contiguous float32 (B, N, HW) tensor")
+    if g.shape != p.shape or g.device != p.device:
+        raise ValueError("masked_softmax split backward: g must match p")
+    g = g.to(torch.float32).contiguous()
+    return g.clone() if g.data_ptr() % 16 else g
+
+
+def masked_softmax_row_dots(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Split rows, backward 1: (2, B, N) float32, each row's share of
+    ``sum p * g`` and its active flag (1.0 / 0.0).  CPU: the plain version;
+    CUDA: one launch."""
+    if p.device.type == "cpu":
+        return masked_softmax_row_dots_plain(p, g)
+    g = _check_pg(p, g)
+    b, n, hw = p.shape
+    scratch = torch.empty((2, b, n), dtype=torch.float32, device=p.device)
+    err = _split_fns()[2](p.data_ptr(), g.data_ptr(), scratch.data_ptr(),
+                          b, n, hw, build.stream_handle(p.device))
+    _launched(err, "row dots", "backward")
+    return torch.stack([scratch[0],
+                        scratch[1].view(torch.int32).to(torch.float32)])
+
+
+def masked_softmax_tiles(p: torch.Tensor, g: torch.Tensor,
+                         dots: torch.Tensor) -> torch.Tensor:
+    """Split rows, backward 2: de (B, HW) from the global (2, B, N) dots and
+    flags.  CPU: the plain version; CUDA: one launch."""
+    if p.device.type == "cpu":
+        return masked_softmax_tiles_plain(p, g, dots)
+    g = _check_pg(p, g)
+    b, n, hw = p.shape
+    scratch = torch.empty((2, b, n), dtype=torch.float32, device=p.device)
+    scratch[0] = dots[0]
+    scratch[1].view(torch.int32).copy_((dots[1] > 0).to(torch.int32))
+    de = torch.empty((b, hw), dtype=torch.float32, device=p.device)
+    err = _split_fns()[3](p.data_ptr(), g.data_ptr(), scratch.data_ptr(),
+                          de.data_ptr(), b, n, hw,
+                          build.stream_handle(p.device))
+    _launched(err, "tiles", "backward")
+    return de
+
+
 def masked_softmax(e: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """``p (B, N, HW)`` from ``e (B, HW)`` and ``mask (B, N, HW)``.  CPU
     tensors take the plain version; CUDA tensors the kernels."""
@@ -160,3 +317,5 @@ def masked_softmax(e: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 masked_softmax.launches = 0
 masked_softmax.forward_launches = 0
 masked_softmax.backward_launches = 0
+masked_softmax.split_forward_launches = 0
+masked_softmax.split_backward_launches = 0

@@ -3,6 +3,8 @@
 Layout: logits and targets are ``(B, C, H, W)``, the port's NCHW; the JAX
 functions take ``(B, H, W, C)``.  Only the reduction axes differ.
 ``instance_dice_loss`` (flat rows, any layout) is not on the training path.
+Under spatial sharding (``parallel/spatial.py``) the per-class sums run
+over the ranks' rows of the current maps.
 """
 
 from __future__ import annotations
@@ -10,6 +12,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from tpuseg_torch.parallel import spatial
 
 
 def dice_coefficient(logits: torch.Tensor, target_onehot: torch.Tensor,
@@ -28,7 +32,8 @@ def dice_coefficient(logits: torch.Tensor, target_onehot: torch.Tensor,
     den2 = (tgt * w) if time == 1 else (tgt * tgt * w)
     if mask is not None:
         num, den1, den2 = num * mask, den1 * mask, den2 * mask
-    num, den1, den2 = (t.sum(dim=(2, 3)) for t in (num, den1, den2))
+    num, den1, den2 = (spatial.space_sum(t, (2, 3))
+                       for t in (num, den1, den2))
     return (2.0 * num + smooth) / (den1 + den2 + smooth)
 
 

@@ -1,6 +1,8 @@
 """Focal, BCE and cross-entropy losses (port of ``tpuseg/losses/focal.py``).
 
-``bce_loss`` is not on the training path.
+``bce_loss`` is not on the training path.  Under spatial sharding
+(``parallel/spatial.py``) the cross-entropy's mean and weight sum run over
+the ranks' rows of the current maps.
 """
 
 from __future__ import annotations
@@ -9,7 +11,8 @@ from typing import Optional
 
 import torch
 
-from tpuseg_torch.parallel.mesh import all_reduce_sum, world_size
+from tpuseg_torch.parallel import spatial
+from tpuseg_torch.parallel.mesh import all_reduce_sum, data_ranks
 
 _EPS = 1e-7
 
@@ -55,11 +58,13 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     logp = torch.log_softmax(logits, dim=-1)
     ce = -logp.gather(1, labels[:, None])[:, 0]
     if class_weights is None:
-        return ce.mean()
+        return spatial.global_mean(ce)
     w = torch.as_tensor(class_weights, dtype=logits.dtype,
                         device=logits.device)[labels]
+    if spatial.sharded():
+        return spatial.space_sum(w * ce, 0) / spatial.space_sum(w, 0)
     # under data parallelism each rank divides by its share of the global
     # weight sum, so the ranks' mean is the global weighted mean
-    n = world_size()
+    n = data_ranks()
     den = w.sum() if n == 1 else all_reduce_sum(w.sum()) / n
     return (w * ce).sum() / den

@@ -10,6 +10,12 @@ the float32 weights, casts the module, and keeps the JAX package's float32
 islands in float32 (count-head output layer, density-head output conv and
 calibration, the masked BN of the attention score; the conv1 partial is
 computed in float32 by the pyramid level itself).
+
+Under spatial sharding (``parallel/spatial.py``) the heads run at their
+levels' rows (count head: 1/16, density head: 1/4), their 3x3
+convolutions read halo rows and every sum over the pixels (the count
+head's mean, the density count that sets each sample's extraction budget,
+the density losses) runs over the ranks' rows.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from tpuseg_torch.decoder.instance import InstanceDecoder
 from tpuseg_torch.nn.attention import SqueezeExcite
 from tpuseg_torch.nn.blocks import _BN, relu6
 from tpuseg_torch.nn.unet import UNet
+from tpuseg_torch.parallel import spatial
 
 # count = sum(density) / DENSITY_SCALE
 DENSITY_SCALE = 256.0
@@ -47,10 +54,10 @@ class _InsStem(nn.Module):
         self._BN_4 = _BN(d_model)
 
     def forward(self, x):
-        y = relu6(self._BN_0(self.Conv_0(x)))
+        y = relu6(self._BN_0(spatial.conv2d(self.Conv_0, x)))
         y = relu6(self._BN_1(self.Conv_1(y)))
         z = relu6(self._BN_2(self.Conv_2(y)))
-        z = relu6(self._BN_3(self.Conv_3(z)))
+        z = relu6(self._BN_3(spatial.conv2d(self.Conv_3, z)))
         return self._BN_4(self.Conv_4(z)) + y
 
 
@@ -63,7 +70,8 @@ class _CountHead(nn.Module):
         self.Dense_1 = nn.Linear(hidden, n_classes)
 
     def forward(self, x5):
-        y = F.relu(self.Dense_0(x5.mean(dim=(2, 3))))
+        with spatial.level(16):
+            y = F.relu(self.Dense_0(spatial.space_mean(x5, (2, 3))))
         with torch.autocast(y.device.type, enabled=False):
             return self.Dense_1(y.float())
 
@@ -83,20 +91,33 @@ class _DensityHead(nn.Module):
 
     def forward(self, skips):
         x3, x4 = skips[2].detach(), skips[3].detach()
-        x4u = x4.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
-        y = F.relu(self.Conv_0(torch.cat([x3, x4u], dim=1)))
-        y = F.relu(self.Conv_1(y))
-        with torch.autocast(y.device.type, enabled=False):
-            dens = F.softplus(self.Conv_2(y.float()))
-        h, w = dens.shape[2:]
+        rows = spatial.level_rows(4)
+        x4u = spatial.upsample_rows(
+            x4, lambda t: t.repeat_interleave(2, dim=2), 2,
+            spatial.level_rows(8), rows).repeat_interleave(2, dim=3)
+        with spatial.at_rows(rows):
+            y = F.relu(spatial.conv2d(self.Conv_0, torch.cat([x3, x4u], dim=1)))
+            y = F.relu(spatial.conv2d(self.Conv_1, y))
+            with torch.autocast(y.device.type, enabled=False):
+                dens = F.softplus(self.Conv_2(y.float()))
+            h, w = dens.shape[2:]
+            h = spatial.canvas_rows(h)
         return dens * self.out_gain + self.out_off * (DENSITY_SCALE / float(h * w))
 
 
 def pool_density(gt: torch.Tensor, dh: int, dw: int) -> torch.Tensor:
     """Mass-preserving sum-pool of a (B, 1, H, W) density map onto the
-    head's (dh, dw) grid."""
-    b, _, h, w = gt.shape
-    return gt.reshape(b, 1, dh, h // dh, dw, w // dw).sum(dim=(3, 5))
+    head's (dh, dw) grid (under spatial sharding: this rank's rows of both,
+    the head's grid at 1/4 resolution)."""
+    def pool(t, f):
+        b, _, h, w = t.shape
+        return t.reshape(b, 1, h // f, f, w // f, f).sum(dim=(3, 5))
+
+    if not spatial.active():
+        b, _, h, w = gt.shape
+        return gt.reshape(b, 1, dh, h // dh, dw, w // dw).sum(dim=(3, 5))
+    return spatial.pool_rows(gt, pool, gt.shape[3] // dw,
+                             spatial.level_rows(1), spatial.level_rows(4))
 
 
 def density_target(ins_target: torch.Tensor,
@@ -104,7 +125,7 @@ def density_target(ins_target: torch.Tensor,
     """(B, N, H, W) instance masks + (B,) counts -> (B, 1, H, W) scaled GT
     density: each valid instance's mask normalised to unit mass."""
     masks = ins_target.float()
-    areas = masks.sum(dim=(2, 3))  # (B, N)
+    areas = spatial.space_sum(masks, (2, 3))  # (B, N)
     slots = torch.arange(masks.shape[1], device=masks.device)
     valid = (slots[None] < n_objects[:, None]) & (areas > 0)
     w = torch.where(valid, DENSITY_SCALE / areas.clamp(min=1.0),
@@ -114,9 +135,9 @@ def density_target(ins_target: torch.Tensor,
 
 def density_count(density) -> torch.Tensor:
     """(B, 1, h, w) scaled density -> (B,) count, rounded half-to-even."""
-    return torch.round(
-        density.float().sum(dim=(1, 2, 3)) / DENSITY_SCALE
-    ).to(torch.int32)
+    with spatial.level(4):
+        total = spatial.space_sum(density.float(), (1, 2, 3))
+    return torch.round(total / DENSITY_SCALE).to(torch.int32)
 
 
 class ReSeg(nn.Module):
@@ -186,11 +207,14 @@ class ReSeg(nn.Module):
             density = self.density_head(skips)
             dh, dw = density.shape[2:]
             gt = pool_density(density_target(ins_target, n_objects), dh, dw)
-            # npix/16 keeps the map term at a full-resolution head's
-            # magnitude (1/4-resolution pixels carry 16x the mass)
-            losses["density_loss"] = (
-                (density - gt).square().mean() * float(dh * dw / 16.0))
-            est = density.sum(dim=(1, 2, 3)) / DENSITY_SCALE
+            with spatial.level(4):
+                dh = spatial.canvas_rows(dh)
+                # npix/16 keeps the map term at a full-resolution head's
+                # magnitude (1/4-resolution pixels carry 16x the mass)
+                losses["density_loss"] = (
+                    spatial.global_mean((density - gt).square())
+                    * float(dh * dw / 16.0))
+                est = spatial.space_sum(density, (1, 2, 3)) / DENSITY_SCALE
             losses["density_count_loss"] = (
                 (est - n_objects.to(torch.float32)).square().mean())
             losses["density_count"] = est

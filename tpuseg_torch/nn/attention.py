@@ -6,6 +6,11 @@ masks are given (all the extraction path consumes); with them it also
 returns the per-instance distributions the training loss samples its
 glimpses from, through the ``masked_softmax`` kernel on the card and its
 plain version on the CPU.
+
+Under spatial sharding (``parallel/spatial.py``) every mean, sum and
+softmax over the pixels is one over the ranks' rows, the 3x3 convolution
+and pooling read a row of halo, and the per-instance softmax runs the
+kernel's split entry points.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import torch.nn.functional as F
 
 from tpuseg_torch.kernels.masked_softmax import masked_softmax
 from tpuseg_torch.nn.blocks import batch_norm, running_stats_frozen
+from tpuseg_torch.parallel import spatial
 from tpuseg_torch.parallel.mesh import batch_mean
 
 _NEG_INF = -1e30
@@ -23,7 +29,7 @@ _NEG_INF = -1e30
 
 def avg_pool_3x3_same(x: torch.Tensor) -> torch.Tensor:
     """3x3 stride-1 average pooling, zero padding, divisor fixed at 9."""
-    return F.avg_pool2d(x, 3, 1, 1, count_include_pad=True)
+    return spatial.avg_pool_3x3(x)
 
 
 class SqueezeExcite(nn.Module):
@@ -33,7 +39,7 @@ class SqueezeExcite(nn.Module):
         self.Dense_1 = nn.Linear(c // reduction, c)
 
     def forward(self, x):
-        y = x.mean(dim=(2, 3))
+        y = spatial.space_mean(x, (2, 3))
         y = torch.sigmoid(self.Dense_1(F.relu(self.Dense_0(y))))
         return x * y[:, :, None, None]
 
@@ -53,12 +59,12 @@ class SpatialAttention(nn.Module):
     def forward(self, base, y):
         b = base.shape[0]
         masked = base * y
-        h_t = self.Dense_0(masked.mean(dim=(2, 3)))
+        h_t = self.Dense_0(spatial.space_mean(masked, (2, 3)))
         z = self.Conv_0(masked) + h_t[:, :, None, None]
         beta = self.Conv_1(torch.tanh(z))  # (b, 1, h, w)
         logits = torch.where(y > 0, beta, torch.full_like(beta, _NEG_INF))
-        y_sum = y.sum(dim=(1, 2, 3)).reshape(b, 1)
-        p = torch.softmax(logits.reshape(b, -1), dim=1)
+        y_sum = spatial.space_sum(y, (1, 2, 3)).reshape(b, 1)
+        p = spatial.softmax_flat(logits.reshape(b, -1))
         p = torch.where(y_sum > 0, p, torch.zeros_like(p))  # empty-mask guard
         beta = (p * y_sum).reshape(beta.shape)
         return base + batch_norm(self.BatchNorm_0, base * beta) * y
@@ -74,7 +80,8 @@ class MaskedBatchNorm(nn.Module):
     ``momentum`` 0.1, so they track the latest batch closely (eval-time
     behaviour depends on it).  Eval mode normalises with the running
     statistics.  Under data parallelism the batch averages run over the
-    global batch (``parallel/mesh.py::batch_mean``)."""
+    global batch (``parallel/mesh.py::batch_mean``); under spatial
+    sharding the per-sample masked moments sum over the ranks' rows."""
 
     def __init__(self, c: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -92,10 +99,10 @@ class MaskedBatchNorm(nn.Module):
             if mask is None:
                 raise ValueError("MaskedBatchNorm needs the mask in train mode")
             m = mask.float()  # (B, 1, H, W), broadcast over channels
-            cnt = m.sum(dim=(1, 2, 3)) + 1.0  # (B,)
-            mean = batch_mean((xf * m).sum(dim=(2, 3)) / cnt[:, None])
+            cnt = spatial.space_sum(m, (1, 2, 3)) + 1.0  # (B,)
+            mean = batch_mean(spatial.space_sum(xf * m, (2, 3)) / cnt[:, None])
             sq = (xf - v(mean)) ** 2
-            var = batch_mean((sq * m).sum(dim=(2, 3)) / cnt[:, None])
+            var = batch_mean(spatial.space_sum(sq * m, (2, 3)) / cnt[:, None])
             if not running_stats_frozen():
                 with torch.no_grad():
                     mo = self.momentum
@@ -123,11 +130,12 @@ class HardAttention(nn.Module):
         (B, N, H, W) the pair ``(per_instance (B, N, H, W), e)``, empty
         instances all zero.  The gradient reaches ``e``, not the masks."""
         e = torch.tanh(self.Conv_0(avg_pool_3x3_same(s)))
-        e = self.MaskedBatchNorm_0(self.Conv_1(e), sem_seg)
+        e = self.MaskedBatchNorm_0(spatial.conv2d(self.Conv_1, e), sem_seg)
         e = avg_pool_3x3_same(e) * sem_seg.float()
         if ins_seg is None:
             return e
         b, n, h, w = ins_seg.shape
-        p = masked_softmax(e.reshape(b, h * w).contiguous(),
-                           ins_seg.float().contiguous().reshape(b, n, h * w))
+        softmax = spatial.masked_softmax if spatial.sharded() else masked_softmax
+        p = softmax(e.reshape(b, h * w).contiguous(),
+                    ins_seg.float().contiguous().reshape(b, n, h * w))
         return p.reshape(b, n, h, w), e

@@ -14,7 +14,12 @@ for several identical ones (skip transforms hoisted out of the glimpse loop).
 Under data parallelism (a process group of several ranks, ``parallel/``)
 a train-mode BatchNorm takes its statistics over the global batch, as the
 JAX package's does under a mesh: the ranks all-reduce ``sum(x)``,
-``sum(x^2)`` and the count, and the reduction is differentiable.
+``sum(x^2)`` and the count, and the reduction is differentiable.  Under
+spatial sharding (``parallel/spatial.py``) the ranks hold rows of the same
+samples: where a level's rows are sharded the same three sums are reduced
+over the ranks as row partials (``spatial.reduce_rows``), where they are
+replicated every rank already holds the whole batch.  The 3x3
+convolutions read their halo rows through ``spatial.conv2d``.
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tpuseg_torch.parallel.mesh import all_reduce_sum, world_size
+from tpuseg_torch.parallel import spatial
+from tpuseg_torch.parallel.mesh import all_reduce_sum, data_ranks
 
 
 def relu6(x: torch.Tensor) -> torch.Tensor:
@@ -64,8 +70,10 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     with ``m`` torch's momentum (0.1, flax's 0.9)."""
     if not bn.training:
         return bn(x)
-    if world_size() > 1:
-        return _global_batch_norm(bn, x)
+    if spatial.sharded():
+        return _global_batch_norm(bn, x, spatial.reduce_rows)
+    if data_ranks() > 1:
+        return _global_batch_norm(bn, x, all_reduce_sum)
     mean = torch.zeros_like(bn.running_mean)
     var = torch.ones_like(bn.running_var)
     # momentum 1 leaves the batch mean and the unbiased batch variance
@@ -79,15 +87,19 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _global_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """Train-mode ``batch_norm`` with the statistics of the batch of every
-    rank: one all-reduce of (sum x, sum x^2, count) per call, float32, the
-    biased variance as ``E[x^2] - E[x]^2`` (flax's fast variance)."""
+def _global_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor,
+                       reduce) -> torch.Tensor:
+    """Train-mode ``batch_norm`` with the statistics of the pixels of every
+    rank: one differentiable ``reduce`` over the ranks of (sum x, sum x^2,
+    count) per call, float32, the biased variance as ``E[x^2] - E[x]^2``
+    (flax's fast variance).  ``reduce`` is ``all_reduce_sum`` where the
+    ranks hold other samples, ``spatial.reduce_rows`` where they hold other
+    rows of the same samples."""
     c = x.shape[1]
     xf = x.float()
     stats = torch.cat([xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3)),
                        xf.new_full((1,), float(x.numel() // c))])
-    stats = all_reduce_sum(stats)
+    stats = reduce(stats)
     n = stats[2 * c]
     mean = stats[:c] / n
     var = (stats[c:2 * c] / n - mean.square()).clamp_min(0.0)
@@ -132,7 +144,7 @@ class ConvBN(nn.Module):
         self._BN_0 = _BN(features)
 
     def forward(self, x):
-        return F.relu(self._BN_0(self.Conv_0(x)))
+        return F.relu(self._BN_0(spatial.conv2d(self.Conv_0, x)))
 
 
 class Conv1x1BN(nn.Module):
@@ -162,7 +174,7 @@ class InvertedV1Residual(nn.Module):
         self._BN_1 = _BN(features)
 
     def forward(self, x):
-        y = relu6(self._BN_0(self.Conv_0(x)))
+        y = relu6(self._BN_0(spatial.conv2d(self.Conv_0, x)))
         y = self._BN_1(self.Conv_1(y))
         if self.with_relu:
             y = relu6(y)
@@ -186,7 +198,7 @@ class InvertedResidual(nn.Module):
 
     def forward(self, x):
         y = relu6(self._BN_0(self.Conv_0(x)))
-        y = relu6(self._BN_1(self.Conv_1(y)))
+        y = relu6(self._BN_1(spatial.conv2d(self.Conv_1, y)))
         y = self._BN_2(self.Conv_2(y))
         return x + y if self.use_res else y
 

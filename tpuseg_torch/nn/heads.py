@@ -5,6 +5,8 @@ from __future__ import annotations
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tpuseg_torch.parallel import spatial
+
 
 class L0Head(nn.Module):
     """Conv3x3(c -> c/r) -> LeakyReLU(0.01) -> Conv3x3(-> 2 logits)."""
@@ -15,4 +17,5 @@ class L0Head(nn.Module):
         self.Conv_1 = nn.Conv2d(c // reduction, out_channels, 3, padding=1)
 
     def forward(self, x):
-        return self.Conv_1(F.leaky_relu(self.Conv_0(x), negative_slope=0.01))
+        y = F.leaky_relu(spatial.conv2d(self.Conv_0, x), negative_slope=0.01)
+        return spatial.conv2d(self.Conv_1, y)

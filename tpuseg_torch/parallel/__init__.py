@@ -8,3 +8,13 @@ from tpuseg_torch.parallel.mesh import (  # noqa: F401
     shard_batch,
     world_size,
 )
+from tpuseg_torch.parallel.spatial import (  # noqa: F401
+    make_infer_spatial,
+    make_semantic_spatial,
+    make_train_spatial,
+    replicate_state,
+    shard_spatial,
+    shard_train_batch,
+    spatial_context,
+    spatial_sharding,
+)

@@ -17,7 +17,10 @@ Here each rank is a process with its own replica of the state:
 * the collectives the model code calls (``batch_sum``, ``batch_mean``,
   ``batch_min``, ``all_reduce_sum``) reduce over the ranks when a process
   group of more than one rank is up, and are the plain local reduction
-  otherwise, so one process runs exactly the single-device program.
+  otherwise, so one process runs exactly the single-device program.  The
+  batch reductions sum over ranks that hold different samples
+  (``data_ranks``): under a spatial context (``parallel/spatial.py``),
+  whose ranks hold rows of the same samples, they are local.
 
 Backend: NCCL when each rank has a card of its own; gloo when ranks share
 a card or run on the CPU (rank r on ``cuda:(r % device_count)``).
@@ -60,6 +63,23 @@ def world_size() -> int:
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size()
     return 1
+
+
+_SPATIAL = [False]
+
+
+def set_spatial(on: bool) -> bool:
+    """Mark the ranks as holding rows of the same samples (``True``) or
+    different samples; returns the previous mark."""
+    old = _SPATIAL[0]
+    _SPATIAL[0] = on
+    return old
+
+
+def data_ranks() -> int:
+    """Ranks that hold different samples of the global batch: the world,
+    or 1 under a spatial context."""
+    return 1 if _SPATIAL[0] else world_size()
 
 
 def rank_device(rank: int, device="cuda") -> torch.device:
@@ -208,14 +228,14 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
 
 def batch_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum over dim 0 of the global batch."""
-    if world_size() == 1:
+    if data_ranks() == 1:
         return x.sum(dim=0)
     return all_reduce_sum(x.sum(dim=0))
 
 
 def batch_mean(x: torch.Tensor) -> torch.Tensor:
     """Mean over dim 0 of the global batch (equal shards on every rank)."""
-    n = world_size()
+    n = data_ranks()
     if n == 1:
         return x.mean(dim=0)
     return all_reduce_sum(x.sum(dim=0)) / (x.shape[0] * n)
@@ -224,7 +244,7 @@ def batch_mean(x: torch.Tensor) -> torch.Tensor:
 def batch_min(x: torch.Tensor) -> torch.Tensor:
     """Minimum of the global batch (no gradient)."""
     m = x.min()
-    if world_size() > 1:
+    if data_ranks() > 1:
         m = m.clone()
         dist.all_reduce(m, op=dist.ReduceOp.MIN)
     return m

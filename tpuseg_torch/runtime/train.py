@@ -16,7 +16,10 @@ Under data parallelism (a process group of several ranks, each with its
 shard of the global batch: ``parallel/``) a step is the JAX mesh step:
 the gradients are averaged over the ranks as one flat all-reduce before
 the clips and the optimizer see them, and the metrics are averaged too, so
-every rank logs and schedules on the global values.
+every rank logs and schedules on the global values.  Under spatial
+sharding (``parallel/spatial.py::make_train_spatial``) the same step runs
+on each rank's rows of the same samples: the losses are the whole image's
+on every rank, and the average of the ranks' gradients is the gradient.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from tpuseg_torch.data.colorspace import image_ex_standardize
 from tpuseg_torch.data.device_aug import device_augment
 from tpuseg_torch.losses.dice import dice_loss
 from tpuseg_torch.losses.focal import softmax_cross_entropy
+from tpuseg_torch.parallel import spatial
 from tpuseg_torch.parallel.mesh import mean_over_ranks_, world_size
 from tpuseg_torch.runtime.state import TrainState, global_norm
 
@@ -83,7 +87,8 @@ def total_cost(cfg: Config, sem_logits, sem_onehot, dec_losses, train: bool,
         if "count_logits" in dec_losses and n_objects is not None:
             logits = dec_losses["count_logits"]
             labels = n_objects.long().clamp(0, logits.shape[-1] - 1)
-            count_ce = softmax_cross_entropy(logits, labels)
+            with spatial.local():  # one row per sample, not pixels
+                count_ce = softmax_cross_entropy(logits, labels)
             cost = cost + cfg.train.lambda_count * count_ce
             metrics["count_loss"] = count_ce
             metrics["count_err"] = (
