@@ -18,7 +18,8 @@ One spawn of 4 ranks runs every sharded case in turn
 * Training: two SGD steps under ``deterministic_glimpse`` at H=64, W=32,
   B=2: parameters within rtol 5e-3 / atol 1.6e-2 of one process (the JAX
   test's bound), the ranks bit-identical, the gathers under 4 input
-  activations, each under one.
+  activations, each under one, none a full-resolution map of more than
+  2 channels.
 * H=32 over 4 ranks (8 rows a rank: the UNet's 1/16 level and the decode's
   1/4 and coarser gather): semantic and inference equal one process.
 * H not dividing over the ranks raises ``ValueError``.
@@ -262,9 +263,12 @@ def test_train_gathers_stay_under_the_input_activation(case):
         comms = r[2]["comms"]
         assert any(c["op"] == "halo_grad" for c in comms)
         # the gathers and, in the backward, their all-reduced gradients
-        sizes = [int(np.prod(c["shape"])) for c in _gathers(
-            comms, ("gather", "gather_grad", "take_grad"))]
+        moved = _gathers(comms, ("gather", "gather_grad", "take_grad"))
+        sizes = [int(np.prod(c["shape"])) for c in moved]
         assert all(s <= act for s in sizes)
+        # no rank holds all rows of a full-resolution map of > 2 channels
+        assert not [c for c in moved if c["shape"][2] >= 64
+                    and c["shape"][1] > 2]
         assert sum(sizes) <= 4 * act, sum(sizes)
 
 
