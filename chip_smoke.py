@@ -160,7 +160,18 @@ split-row entry points, ``sru_scan``) from
     the ranks beside one process's; training at 256 x 256, f32, 2 SGD
     steps under deterministic glimpses (parameters within rtol 5e-3 / atol
     1.6e-2 of one process), each rank's launches of the split entry points
-    (2 a direction and step, and no whole-row launch).
+    (2 a direction and step, and no whole-row launch);
+25. runs the capability modules (the JAX package's modules off the main
+    paths: the CoordConv family, VGG16, the hourglass, the ASPP modules,
+    the DQN and the legacy AtteNet with its ``q_fn``, the transformer
+    stack, the embedding, the DCGAN decoder, the discriminative, PN and
+    MMD losses, ``window_origin_fg``, ``calc_bd``) at the JAX package's
+    default widths on 256 x 256 maps, f32 with TF32 off, on the card and
+    on the CPU from the same weights: every output within ``CAP_TOL``;
+    one ``MatchLoss.step`` and one ``DQNSelecter.update`` likewise; each
+    forward timed; then the C++ host library (``native/*.cpp``) is built
+    with the machine's compiler and its SRU forward held to the Hopper
+    ``sru_fwd_kernel`` at item 7's shape.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises: the
@@ -2759,6 +2770,339 @@ def phase_spatial(cfg, model, dev, stop, smi):
     return out
 
 
+CAP_SIDE = 256     # the model's input size: the capability phase's maps
+CAP_TOL = 1e-4     # card vs CPU: max|card - cpu| / max|cpu|, per output
+NATIVE_TOL = 1e-5  # the C++ host SRU forward vs the Hopper sru_fwd_kernel
+
+
+def rel_err(got, want) -> float:
+    """max|got - want| / max|want| on the CPU in float32."""
+    got = got.detach().float().cpu()
+    want = want.detach().float().cpu()
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    return float((got - want).abs().max()) / max(scale, 1e-30) \
+        if want.numel() else 0.0
+
+
+def flat_outputs(x) -> list:
+    """The tensors of a nested output (tuples, lists, dicts), bool as
+    float."""
+    import torch
+
+    if x is None:
+        return []
+    if isinstance(x, (int, float)):
+        return [torch.tensor(float(x))]
+    if torch.is_tensor(x):
+        return [x.float() if x.dtype == torch.bool else x]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in flat_outputs(v)]
+    return [t for v in x for t in flat_outputs(v)]
+
+
+def adam_step_gate(name, card, cpu, before, grads, step_max):
+    """The parameters after one Adam step on the card and the CPU (flax
+    trees of numpy leaves) within ``CAP_TOL`` of each other, leaf by leaf,
+    except where the CPU gradient is below 1e-6 of its largest: there
+    Adam's first step (lr * g / (|g| + eps)) turns rounding noise into a
+    step, and each side is held to a step of at most ``step_max``.
+    Returns (the worst relative error, the elements so held)."""
+    def flat(tree, path=()):
+        if isinstance(tree, dict):
+            return {p: v for k, sub in tree.items()
+                    for p, v in flat(sub, path + (k,)).items()}
+        return {".".join(path): tree}
+
+    grads, card, cpu, before = map(flat, (grads, card, cpu, before))
+    noise = 1e-6 * max(float(np.abs(v).max()) for v in grads.values())
+    worst, held = 0.0, 0
+    for k, grad in grads.items():
+        small = np.abs(grad) < noise
+        held += int(small.sum())
+        for side in (card, cpu):
+            step = np.abs(side[k] - before[k])[small]
+            if step.size and step.max() > step_max:
+                raise AssertionError(f"{name}: {k} moved {step.max()} on a "
+                                     f"noise gradient")
+        a, b = card[k][~small], cpu[k][~small]
+        if b.size:
+            worst = max(worst, float(np.abs(a - b).max())
+                        / max(float(np.abs(b).max()), 1e-30))
+    if not worst <= CAP_TOL:
+        raise AssertionError(f"{name}: card vs CPU update rel err {worst}")
+    return worst, held
+
+
+def phase_capability(dev, smi, side=CAP_SIDE):
+    """The capability modules (the JAX package's modules off the main
+    paths) at the JAX package's default widths, on ``side``-square maps
+    (the model's input size): each run in float32 with TF32 off on the card
+    and on the CPU from the same weights and inputs, every output within
+    ``CAP_TOL`` (max|card - cpu| / max|cpu|), the card forward timed (CUDA
+    events); one ``MatchLoss.step`` and one ``DQNSelecter.update`` on both
+    (``adam_step_gate``); ``AtteNetLegacy`` with the DQN's ``q_fn``; the
+    C++ host library built here and its SRU forward held to the Hopper
+    ``sru_fwd_kernel`` at the language-model shape (``NATIVE_TOL``)."""
+    import dataclasses
+
+    import torch
+
+    from tpuseg_torch.configs import DecoderConfig
+    from tpuseg_torch.decoder import pn_losses
+    from tpuseg_torch.decoder.pyramid import window_origin_fg
+    from tpuseg_torch.evalm.metrics import calc_bd
+    from tpuseg_torch.kernels.sru_scan import sru_scan
+    from tpuseg_torch.losses import discriminative, mmd
+    from tpuseg_torch.models.attenet_legacy import AtteNetLegacy
+    from tpuseg_torch.nn import (
+        VGG16, ChannelAttention, CoordConv, CoordConvNet, CoordConvTranspose,
+        DcganDecoder, DenseASPP, MaskedAsppEncoder, MobileV1ASPP,
+        NonLocalLayer, ScalePDAttention, SkipVGG16, TransformerDecoderLayer,
+        retrofit_coordconv_params)
+    from tpuseg_torch.nn import native
+    from tpuseg_torch.nn.dqn import DQNSelecter, RLSelect
+    from tpuseg_torch.nn.embedding import Embedding
+    from tpuseg_torch.nn.hourglass import StackedRecurrentHourglass
+    from tpuseg_torch.runtime.predict import tf32_off
+    from tpuseg_torch.runtime.wae import MatchLoss
+    from tpuseg_torch.weights import grads_to_flax, to_flax
+
+    t_phase = time.perf_counter()
+    torch.manual_seed(0)
+    g = torch.Generator().manual_seed(0)
+    cpu = torch.device("cpu")
+    rows = []
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g)
+
+    def mask(*shape, p=0.5):
+        return (torch.rand(shape, generator=g) < p).float()
+
+    def to(a, d):
+        if torch.is_tensor(a):
+            return a.to(d)
+        if isinstance(a, (list, tuple)):
+            return type(a)(to(v, d) for v in a)
+        return a
+
+    def pair(name, fn_cpu, fn_card, *inputs, **kw):
+        args, kwc = to(inputs, dev), {k: to(v, dev) for k, v in kw.items()}
+        with torch.no_grad():
+            want = flat_outputs(fn_cpu(*inputs, **kw))
+            got = flat_outputs(fn_card(*args, **kwc))
+            if len(got) != len(want):
+                raise AssertionError(f"{name}: {len(got)} outputs on the "
+                                     f"card, {len(want)} on the CPU")
+            err = max(rel_err(a, b) for a, b in zip(got, want))
+            ms = cuda_ms(lambda: fn_card(*args, **kwc), 3, 1)
+        if not err <= CAP_TOL:
+            raise AssertionError(f"{name}: card vs CPU rel err {err}")
+        rows.append({"module": name, "rel_err": err, "ms": ms})
+        log(f"  {name}: rel err {err:.2e}, {ms:.3f} ms on the card")
+
+    def module(name, m, *inputs, **kw):
+        m = m.eval()
+        pair(name, m, copy.deepcopy(m).to(dev), *inputs, **kw)
+
+    s = side
+    x3 = randn(1, 3, s, s)
+    x24 = randn(2, 24, s, s)
+    x32 = randn(2, 32, s, s)
+    fg = mask(2, 1, s, s, p=0.6)
+    with tf32_off():
+        # -- CoordConv family, VGG16
+        module("CoordConv", CoordConv(32, 32, 3, padding=1, with_r=True), x32)
+        module("CoordConvTranspose", CoordConvTranspose(32, 16),
+               randn(2, 32, s // 2, s // 2))
+        vgg = VGG16(3).eval()
+        module("VGG16", vgg, x3)
+        skip = SkipVGG16(3).eval()
+        skip.features.load_state_dict(
+            {k: v for k, v in vgg.state_dict().items()
+             if k in skip.features.state_dict()})
+        module("SkipVGG16", skip, x3)
+        net = CoordConvNet(3, n_layers=16).eval()
+        net.load_state_dict(retrofit_coordconv_params(
+            skip.features.state_dict()))
+        module("CoordConvNet", net, x3)
+        with torch.no_grad():  # the retrofit starts out equal
+            retro_err = rel_err(net(x3)[-1], skip(x3)[-1])
+        if not retro_err <= CAP_TOL:
+            raise AssertionError(f"CoordConvNet retrofit rel err {retro_err}")
+        # -- ConvGRU / hourglass
+        module("StackedRecurrentHourglass", StackedRecurrentHourglass(3), x3)
+        # -- attention, blocks, ASPP
+        module("ChannelAttention", ChannelAttention(24, 24).eval(), x24, fg)
+        module("MobileV1ASPP", MobileV1ASPP(32, 32, dilation=2), x32)
+        module("DenseASPP", DenseASPP(3), x3)
+        module("MaskedAsppEncoder", MaskedAsppEncoder(24, 24, (3, 6, 12)),
+               x24, fg)
+        # -- DQN, legacy AtteNet with the DQN's q_fn
+        sel = DQNSelecter.create(24, seed=0, device="cpu")
+        sel_card = DQNSelecter(copy.deepcopy(sel.net).to(dev))
+        flat_fg = fg.reshape(2, -1)
+        pair("RLSelect", sel.q_values, sel_card.q_values, x24, flat_fg)
+        leg = AtteNetLegacy(DecoderConfig(), 24).eval()
+        leg_card = copy.deepcopy(leg).to(dev)
+        ins = torch.zeros(2, 8, s, s)
+        for i in range(8):
+            ins[:, i, (i // 4) * s // 2:(i // 4 + 1) * s // 2,
+                (i % 4) * s // 4:(i % 4 + 1) * s // 4] = 1.0
+        ins_fg = ins.amax(1, keepdim=True) * fg
+        pair("AtteNetLegacy+DQN",
+             lambda *a: leg(*a, q_fn=sel.q_values),
+             lambda *a: leg_card(*a, q_fn=sel_card.q_values),
+             x24, ins_fg, ins)
+        # -- transformer, embedding
+        dec_in, enc = randn(2, 16, 24), randn(2, s * s, 24)
+        key_mask = mask(2, s * s, p=0.7)
+        for last in (False, True):
+            module(f"TransformerDecoderLayer(last={last})",
+                   TransformerDecoderLayer(24, 48, 2, 12, 12, last=last),
+                   dec_in, enc, key_mask)
+        module("ScalePDAttention", ScalePDAttention(24, 12, 12, 24, 2),
+               x24, x24, mask(2, 1, s, s, p=0.2))
+        module("NonLocalLayer", NonLocalLayer(24, 24, 12, 24), x24,
+               randn(2, 24))
+        pts = torch.tensor([[s // 3, s // 2], [s - 1, 0]])
+        module("Embedding", Embedding(24, 24), x24, pts, randn(2, 24))
+        # -- losses
+        emb = randn(2, 32, s, s)
+        ids = torch.randint(0, 17, (2, s, s), generator=g)
+        onehot = (ids[:, None] == torch.arange(1, 17)[None, :, None, None])
+        n_obj = torch.tensor([16, 9])
+        pair("discriminative_loss", discriminative.discriminative_loss,
+             discriminative.discriminative_loss, emb, onehot.float(), n_obj)
+        hw = s * s
+        probs = torch.rand(2, hw, generator=g)
+        pair("pn_loss", pn_losses.pn_loss, pn_losses.pn_loss, probs,
+             randn(2, hw), torch.rand(2, hw, generator=g),
+             torch.full((2, 1), 0.5), mask(2, hw), focal_weight=0.3)
+        maps = [torch.rand(2, 1, s, s, generator=g) for _ in range(4)]
+        pair("pn_loss2", pn_losses.pn_loss2, pn_losses.pn_loss2, *maps, fg)
+        peak = torch.zeros(2, 1, s, s)
+        peak[:, 0, s // 2, s // 3] = 1.0
+        pair("pn_loss3", pn_losses.pn_loss3, pn_losses.pn_loss3, peak,
+             randn(2, 1, s, s), maps[0], torch.tensor([0.3, 0.6]), fg)
+        pair("mmd_penalty", mmd.mmd_penalty, mmd.mmd_penalty,
+             randn(300, 24), randn(300, 24))
+        pair("mmd_penalty_with_p", mmd.mmd_penalty_with_p,
+             mmd.mmd_penalty_with_p, randn(300, 2) * 16, randn(280, 2) * 16,
+             torch.rand(300, generator=g), torch.rand(280, generator=g))
+        recon = torch.rand(16, 64, 64, generator=g)
+        gold = mask(16, 64, 64, p=0.3)
+        pair("decoder_mmd_loss", mmd.decoder_mmd_loss, mmd.decoder_mmd_loss,
+             recon, gold, draws=mmd.decoder_mmd_draws(16, 64, 64, g))
+        pair("mmd_loss_pooled", mmd.mmd_loss_pooled, mmd.mmd_loss_pooled,
+             torch.rand(2, hw, generator=g), mask(2, s, s, p=0.3),
+             draws=torch.rand(2, 2, s, s, generator=g))
+        pair("gl_loss", mmd.gl_loss, mmd.gl_loss, randn(16, 24), recon)
+        module("DcganDecoder", DcganDecoder(), randn(16, 24))
+        points = torch.randint(0, hw, (64,), generator=g)
+        pair("window_origin_fg", window_origin_fg, window_origin_fg, points,
+             (s, s), 192 * s // 256, 64 * s // 256,
+             mask(32, 1, s, s, p=0.3), 2)
+        idmap = torch.randint(0, 9, (s, s), generator=g)
+        noisy = torch.where(torch.rand(s, s, generator=g) < 0.9, idmap,
+                            torch.zeros_like(idmap))
+        pair("calc_bd", calc_bd, calc_bd, idmap, noisy)
+
+        # -- one MatchLoss step and one DQNSelecter update on both
+        ml = MatchLoss.create(device="cpu", weight_decay=1e-2)
+        ml_card = MatchLoss.create(device=dev, weight_decay=1e-2)
+        ml_card.decoder.load_state_dict(ml.decoder.state_dict())
+        before = to_flax(ml.decoder)["params"]
+        z = randn(16, 24)
+        draws = mmd.decoder_mmd_draws(16, 64, 64, g)
+        t0 = time.perf_counter()
+        total, _ = ml.step(z, gold, draws=draws)
+        total_card, _ = ml_card.step(z.to(dev), gold.to(dev),
+                                     draws=draws.to(dev))
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        loss_err = rel_err(total_card, total)
+        upd_err, held = adam_step_gate(
+            "MatchLoss.step", to_flax(ml_card.decoder)["params"],
+            to_flax(ml.decoder)["params"], before, grads_to_flax(ml.decoder),
+            ml.learning_rate * ml.plateau.lr * (1 + 1e-2) + 1e-7)
+        if not loss_err <= CAP_TOL:
+            raise AssertionError(f"MatchLoss loss rel err {loss_err}")
+        rows.append({"module": "MatchLoss.step", "rel_err": upd_err,
+                     "loss_rel_err": loss_err, "noise_elements": held,
+                     "s": step_s})
+        log(f"  MatchLoss.step: loss rel err {loss_err:.2e}, update rel err "
+            f"{upd_err:.2e} ({held} noise-gradient elements held to a step)")
+
+        sel = DQNSelecter.create(24, seed=1, device="cpu", buffer_start=4,
+                                 dqn_batch_size=4)
+        sel_card = DQNSelecter(copy.deepcopy(sel.net).to(dev), seed=1,
+                               buffer_start=4, dqn_batch_size=4)
+        state = randn(4, 24, s, s).numpy()
+        masks = mask(4, hw, p=0.6).numpy()
+        next_masks = masks * mask(4, hw, p=0.5).numpy()
+        acts = np.array([int(np.flatnonzero(m)[0]) for m in masks])
+        fields = (state, acts, np.random.default_rng(0).random(4).astype(
+            np.float32), masks, next_masks, np.array([0, 1, 0, 0], bool))
+        for sl in (sel, sel_card):
+            sl.buffer.push(fields)
+        before = to_flax(sel.net)["params"]
+        # the gradient the CPU step takes, for the noise rule
+        sel.opt.zero_grad()
+        sel.td_loss([torch.as_tensor(a) for a in fields]).backward()
+        dqn_grads = grads_to_flax(sel.net)
+        t0 = time.perf_counter()
+        sel.update()
+        sel_card.update()
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        upd_err, held = adam_step_gate(
+            "DQNSelecter.update", to_flax(sel_card.net)["params"],
+            to_flax(sel.net)["params"], before, dqn_grads, 1e-3 + 1e-7)
+        rows.append({"module": "DQNSelecter.update", "rel_err": upd_err,
+                     "noise_elements": held, "s": step_s})
+        log(f"  DQNSelecter.update: update rel err {upd_err:.2e} ({held} "
+            f"noise-gradient elements held to a step)")
+
+    # -- the C++ host library, built here, vs the Hopper sru_fwd_kernel
+    t0 = time.perf_counter()
+    lib = native.load()
+    build_s = time.perf_counter() - t0
+    native_rows = []
+    for bidir, pad in ((False, False), (True, True)):
+        a, spec, _ = sru_case(cpu, SRU_LM["length"], bidir, 0, False, pad, 3)
+        d, act, _, _, scale_x = spec
+        np_args = {k: (None if v is None else v.numpy()) for k, v in a.items()}
+        t0 = time.perf_counter()
+        h_host, c_host = native.sru_forward_cpu(
+            np_args["u"], np_args["x"], np_args["weight_c"], np_args["bias"],
+            np_args["c0"], d=d, activation=act, scale_x=scale_x,
+            bidirectional=bidir, mask_pad=np_args["mask_pad"])
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        ca = {k: to(v, dev) for k, v in a.items()}
+        with torch.no_grad():
+            h_k, c_k = sru_scan(ca["u"], ca["x"], ca["weight_c"], ca["bias"],
+                                ca["c0"], d=d, activation=act,
+                                bidirectional=bidir, scale_x=scale_x,
+                                mask_pad=ca["mask_pad"])
+        err = max(float(np.abs(h_host - h_k.cpu().numpy()).max()),
+                  float(np.abs(c_host - c_k.cpu().numpy()).max()))
+        if not err <= NATIVE_TOL:
+            raise AssertionError(f"native SRU vs sru_fwd_kernel: {err}")
+        native_rows.append({"bidirectional": bidir, "mask_pad": pad,
+                            "shape": list(a["u"].shape), "max_abs_err": err,
+                            "host_ms": host_ms})
+        log(f"  native sru_forward_cpu vs sru_fwd_kernel "
+            f"{'bi' if bidir else 'uni'}{' mask_pad' if pad else ''} "
+            f"{tuple(a['u'].shape)}: max|err| {err:.2e}, host {host_ms:.1f} ms")
+    seconds = time.perf_counter() - t_phase
+    log(f"  capability phase: {len(rows)} checks, {seconds:.1f} s wall; "
+        f"card: {smi}")
+    return {"rows": rows, "native": native_rows,
+            "native_build_s": build_s, "native_lib": str(lib._name),
+            "seconds": seconds, "card": smi}
+
+
 def make_images(n, seed):
     from tpuseg_torch.data.synthetic import label_map, make_scene
 
@@ -3066,6 +3410,11 @@ def main() -> int:
         t0 = time.perf_counter()
         spatial_run = phase_spatial(cfg, model, dev, stop, smi)
         log(f"phase spatial: {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 25: the capability modules, card vs CPU
+        t0 = time.perf_counter()
+        capability = phase_capability(dev, smi)
+        log(f"phase capability: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3086,7 +3435,8 @@ def main() -> int:
         "staged": staged, "bucketed": bucketed, "pred_cli": pred_cli,
         "cluster": cluster, "debug": debug, "dp_fit": dp_fit,
         "mesh_predict": mesh_pred, "dp_cli": dp_cli, "trace": trace,
-        "spatial": spatial_run, "seconds": time.perf_counter() - t_all,
+        "spatial": spatial_run, "capability": capability,
+        "seconds": time.perf_counter() - t_all,
     }
     log("summary " + json.dumps(summary))
     log("ir_chain rows " + json.dumps(rows))

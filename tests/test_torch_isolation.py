@@ -2,6 +2,7 @@
 no JAX, flax, msgpack, PIL or ``tpuseg`` module, and its entry points run
 on the card unless asked for the CPU."""
 
+import ast
 import importlib
 import json
 import subprocess
@@ -63,7 +64,43 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
         assert f"tpuseg_torch.{name}" in res["imported"], name
     # and the spatial slice's
     assert "tpuseg_torch.parallel.spatial" in res["imported"]
+    # and the capability modules'
+    for name in ("nn.native", "nn.aspp", "nn.transformer", "nn.embedding",
+                 "nn.conv_gru", "nn.hourglass", "nn.vgg16", "nn.dqn",
+                 "nn.dcgan_decoder", "models.attenet_legacy", "losses.mmd",
+                 "losses.discriminative", "decoder.pn_losses",
+                 "runtime.wae"):
+        assert f"tpuseg_torch.{name}" in res["imported"], name
     assert res["bad"] == []
+
+
+def _all_of(path: Path):
+    """The names in a module's ``__all__``, read as text (no import)."""
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise AssertionError(f"{path} has no __all__")
+
+
+def test_the_port_has_every_module_and_export_of_the_jax_package():
+    """Every module file of ``tpuseg/`` has its counterpart in
+    ``tpuseg_torch/``, and the port's ``nn`` and ``losses`` export every
+    name of the JAX package's (the JAX lists read as text)."""
+    jax_files = {p.relative_to(REPO / "tpuseg")
+                 for p in (REPO / "tpuseg").rglob("*.py")}
+    port_files = {p.relative_to(REPO / "tpuseg_torch")
+                  for p in (REPO / "tpuseg_torch").rglob("*.py")}
+    assert sorted(map(str, jax_files - port_files)) == []
+    for pkg in ("nn", "losses"):
+        want = _all_of(REPO / "tpuseg" / pkg / "__init__.py")
+        mod = importlib.import_module(f"tpuseg_torch.{pkg}")
+        assert set(want) <= set(mod.__all__), set(want) - set(mod.__all__)
+        for name in want:
+            assert getattr(mod, name) is not None, name
+    from tpuseg_torch.decoder.pyramid import window_origin_fg  # noqa: F401
+    from tpuseg_torch.evalm.metrics import calc_bd  # noqa: F401
+    from tpuseg_torch.nn import ChannelAttention, MobileV1ASPP  # noqa: F401
 
 
 def test_entry_points_default_to_cuda():

@@ -259,3 +259,35 @@ def test_decode_split(decoder_pair, window):
     for g, w in zip(got, want):
         _close(_nhwc(g), w)
     assert got[-1].shape[2:] == (64, 64)
+
+
+def test_decode_split_fg_mask(decoder_pair):
+    """``decode_split(fg_mask=)``: windows that seek the remaining
+    foreground (``window_origin_fg``) in place of the point-centred ones,
+    against the JAX decode on the same partials."""
+    jdec, variables, tdec, feats, sem = decoder_pair
+    group = 2
+    pts = np.array([5 * 64 + 7, 40 * 64 + 50, 63 * 64 + 63, 31 * 64 + 1])
+    fg = np.zeros((2, 64, 64, 1), np.float32)
+    fg[0, 30:60, 2:20] = 1.0
+    fg[1, 0:24, 36:64] = 1.0
+
+    @jax.jit
+    def run(variables, feats, sem, pts, fg):
+        skips_t = jdec.apply(variables, feats, method=jdec.transform_skips)
+        parts = jdec.apply(variables, skips_t, sem,
+                           method=jdec.conv1_partials)
+        return jdec.apply(variables, pts, parts, group, window=192,
+                          window_stride=64, fg_mask=fg,
+                          method=jdec.decode_split)
+
+    want = run(variables, [jnp.asarray(f) for f in feats], jnp.asarray(sem),
+               jnp.asarray(pts, jnp.int32), jnp.asarray(fg))
+    with torch.no_grad():
+        t_parts = tdec.conv1_partials(
+            tdec.transform_skips([_nchw(f) for f in feats]), _nchw(sem))
+        got = tdec.decode_split(torch.from_numpy(pts), t_parts, group,
+                                window=192, window_stride=64,
+                                fg_mask=_nchw(fg))
+    for g, w in zip(got, want):
+        _close(_nhwc(g), w)

@@ -29,6 +29,10 @@ One spawn of 4 ranks runs every sharded case in turn
 * ``masked_softmax`` over split rows: the plain pieces over 2 emulated
   ranks equal the whole-row plain version (forward and backward, 1e-6),
   and ``spatial.masked_softmax`` over the 4 ranks equals it (1e-6).
+* ``decode_split(fg_mask=)``'s foreground-seeking window origins at H=64
+  (windows of 32 on a 16 grid, across the ranks' rows, tied masses): the
+  4 ranks give one process's and the JAX package's origins, moving only
+  the (B, n_r, n_c) window masses.
 """
 
 import dataclasses
@@ -119,6 +123,18 @@ def _softmax_inputs(seed, b=2, n=3, h=16, w=8):
     return e, mask, g
 
 
+def _fg_window_inputs():
+    """A remaining-foreground mask at 64x64 whose window masses tie (two
+    equal blocks, mirrored), and glimpses at and between them."""
+    fg = np.zeros((2, 1, 64, 64), np.float32)
+    fg[0, 0, 8:24, 8:24] = 1.0
+    fg[0, 0, 40:56, 8:24] = 1.0
+    fg[1, 0, 20:44, 30:34] = 1.0
+    pts = np.array([32 * 64 + 16, 16 * 64 + 16, 31 * 64 + 31, 44 * 64 + 33],
+                   np.int64)
+    return fg, pts
+
+
 def _bn_inputs(seed):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(4, 3, 16, 8)).astype(np.float32)
@@ -152,6 +168,7 @@ class _Case:
         self.train_batch = _train_batch(64, 32)
         self.bn = _bn_inputs(3)
         self.softmax = _softmax_inputs(4)
+        self.fg_window = _fg_window_inputs()
 
     def calls(self):
         f32 = torch.float32
@@ -169,6 +186,7 @@ class _Case:
             (tasks.masked_batch_norm_grads, (*self.bn, True)),
             (tasks.masked_batch_norm_grads, (*self.bn, False)),
             (tasks.split_masked_softmax, self.softmax),
+            (tasks.spatial_window_origin_fg, (*self.fg_window, 32, 16, 2)),
         ]
 
 
@@ -366,3 +384,23 @@ def test_split_masked_softmax_over_the_ranks(case):
     got_de = _rows(case, 7, lambda r: r["de"], 2)
     torch.testing.assert_close(got_p, want_p, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(got_de, want_de, rtol=1e-6, atol=1e-6)
+
+
+def test_fg_window_origins_over_the_ranks(case):
+    """``decode_split(fg_mask=)`` picks its windows from the summed row
+    partials of the window masses: the ranks agree with one process and
+    with the JAX package, ties (equal masses) included."""
+    from tpuseg.decoder import pyramid as jpy
+
+    fg, pts = case.fg_window
+    one = tasks.spatial_window_origin_fg(make_mesh(1, "cpu"), fg, pts, 32,
+                                         16, 2)
+    want = jpy.window_origin_fg(jnp.asarray(pts, jnp.int32), (64, 64), 32,
+                                16, jnp.asarray(np.moveaxis(fg, 1, -1)), 2)
+    for r in case.ranks:
+        got = r[8]
+        for k, j in (("ir", 0), ("ic", 1)):
+            np.testing.assert_array_equal(got[k].numpy(), one[k].numpy())
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[j]))
+        assert [c["op"] for c in got["comms"]] == ["reduce"]
+        assert tuple(got["comms"][0]["shape"]) == (2, 3, 3)

@@ -125,6 +125,57 @@ def window_origin(point_flat, full_hw, win: int, stride: int = 0):
     return ir, ic, onehot, n_r, n_c
 
 
+def window_mass(fg_mask, win: int, stride: int, n_r: int) -> torch.Tensor:
+    """The foreground mass of every window of the ``stride`` grid: fg_mask
+    (B, 1, h, W) -> (B, n_r, n_c).  Under spatial sharding each rank sums
+    its rows of every window (at its global row offset) and the partials
+    are summed over the ranks: no rows move."""
+    cols = F.avg_pool2d(fg_mask.float(), (1, win), (1, stride),
+                        divisor_override=1)[:, 0]  # (B, h, n_c)
+    lo, h = spatial.row_offset(), cols.shape[1]
+    parts = []
+    for i in range(n_r):
+        a = min(max(i * stride - lo, 0), h)
+        b = min(max(i * stride + win - lo, 0), h)
+        parts.append(cols[:, a:b].sum(1))
+    mass = torch.stack(parts, dim=1)
+    return spatial.reduce_rows(mass) if spatial.sharded() else mass
+
+
+def window_origin_fg(point_flat, full_hw, win: int, stride: int, fg_mask,
+                     group: int):
+    """Foreground-seeking window origin: among the grid origins that keep
+    the glimpse at least win/8 inside the window (and the nearest-centred
+    one, always allowed), the one whose window holds the most remaining
+    foreground; the first in grid order on ties.  fg_mask (B, 1, H, W) at
+    batch B, point_flat at B*group.  Returns (ir, ic, onehot, n_r, n_c) as
+    ``window_origin``."""
+    H, W = full_hw
+    s = stride
+    n_r = max((H - win) // s + 1, 1)
+    n_c = max((W - win) // s + 1, 1)
+    row = point_flat // W
+    col = point_flat % W
+    ir0 = torch.clamp((row - win // 2 + s // 2) // s, 0, n_r - 1)
+    ic0 = torch.clamp((col - win // 2 + s // 2) // s, 0, n_c - 1)
+    pool = window_mass(fg_mask, win, s, n_r).repeat_interleave(group, dim=0)
+    m = win // 8
+    dev = point_flat.device
+    o_r = torch.arange(n_r, device=dev) * s
+    o_c = torch.arange(n_c, device=dev) * s
+    ok_r = ((row[:, None] - o_r[None] >= m)
+            & (o_r[None] + win - row[:, None] > m))
+    ok_c = ((col[:, None] - o_c[None] >= m)
+            & (o_c[None] + win - col[:, None] > m))
+    ok = ok_r[:, :, None] & ok_c[:, None, :]
+    near = ((torch.arange(n_r, device=dev)[None] == ir0[:, None])[:, :, None]
+            & (torch.arange(n_c, device=dev)[None] == ic0[:, None])[:, None])
+    score = torch.where(ok | near, pool, torch.full_like(pool, -1.0))
+    k = score.reshape(-1, n_r * n_c).argmax(dim=1)
+    onehot = F.one_hot(k, n_r * n_c).to(torch.float32)
+    return k // n_c, k % n_c, onehot, n_r, n_c
+
+
 def window_plan(H: int, W: int, window: int, window_stride: int = 0
                 ) -> Optional[Tuple[int, int]]:
     """(window, stride) of ``decode_split``'s windowed decode on an H x W
@@ -532,7 +583,8 @@ class AttenDecoder(nn.Module):
         ]
 
     def decode_split(self, point_flat, partials, group: int, window: int = 0,
-                     window_stride: int = 0) -> List[torch.Tensor]:
+                     window_stride: int = 0, fg_mask=None
+                     ) -> List[torch.Tensor]:
         """Per-round pyramid decode from ``conv1_partials``: point_flat at
         the folded B*group batch, partials at B.  Returns the 5 per-level
         2-class logits (N, 2, h, w).
@@ -542,16 +594,22 @@ class AttenDecoder(nn.Module):
         full-resolution: it is pasted back onto the canvas with background
         logits (1, -1) outside the window.  The windowed level's
         intermediate ``preds[-2]`` stays window-sized (None under spatial
-        sharding) — extraction consumes only the last."""
+        sharding) — extraction consumes only the last.  With ``fg_mask``
+        (B, 1, H, W) the windows seek the remaining foreground
+        (``window_origin_fg``) instead of centring on the point."""
         H = spatial.canvas_rows(partials[-1].shape[2]) * _FACTORS[-1]
         W = partials[-1].shape[3] * _FACTORS[-1]
         plan = window_plan(H, W, window, window_stride)
         use_win = plan is not None
         if use_win:
             window, stride = plan
-            ir, ic, onehot, n_r, n_c = window_origin(
-                point_flat, (H, W), window, stride
-            )
+            if fg_mask is not None:
+                ir, ic, onehot, n_r, n_c = window_origin_fg(
+                    point_flat, (H, W), window, stride, fg_mask, group)
+            else:
+                ir, ic, onehot, n_r, n_c = window_origin(
+                    point_flat, (H, W), window, stride
+                )
         preds: List[torch.Tensor] = []
         x = prev_pred = None
         levels = self.levels

@@ -1,5 +1,5 @@
 """Evaluation metrics as tensor ops (port of ``tpuseg/evalm/metrics.py``):
-SBD, |DiC|, foreground Dice.
+SBD, best dice, |DiC|, foreground Dice.
 
 All pairwise instance intersections come from one one-hot matmul per image
 pair; best dice is the row/column max.  When either side has no instances
@@ -49,6 +49,11 @@ def _best_dice(d, valid_rows, valid_cols):
                            torch.zeros_like(row_best))
     n = torch.clamp(valid_rows.sum(), min=1)
     return row_best.sum() / n
+
+
+def calc_bd(ins_seg_gt, ins_seg_pred, max_ids: int = 64) -> torch.Tensor:
+    """Best dice, gt rows vs pred columns."""
+    return _best_dice(*dice_matrix(ins_seg_gt, ins_seg_pred, max_ids))
 
 
 def calc_sbd(ins_seg_gt, ins_seg_pred, max_ids: int = 64) -> torch.Tensor:

@@ -9,6 +9,10 @@ rebuilt.  ``build()`` starts one ``nvcc`` per source, all at once.
 ``KERNELS`` lists them: ``ir_chain`` (the decoder's fused inverted-residual
 block), ``masked_softmax`` (the per-instance attention softmax, forward
 and backward) and ``sru_scan`` (the SRU recurrence, forward and backward).
+
+``build_host`` compiles the repo's C++ host library (``native/*.cpp``: the
+SRU forward on the CPU and the record gather) with the host compiler into
+the same directory, keyed by a hash of its sources.
 """
 
 from __future__ import annotations
@@ -29,6 +33,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
 
+REPO = Path(__file__).resolve().parents[2]
+HOST_SOURCES = (REPO / "native" / "sru_cpu.cpp",
+                REPO / "native" / "records_io.cpp")
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}
 
@@ -42,6 +51,41 @@ def nvcc() -> str:
         if cand and os.path.isfile(cand):
             return cand
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def host_compiler() -> str:
+    for cand in (os.environ.get("CXX"), "g++", "c++"):
+        path = cand and shutil.which(cand)
+        if path:
+            return path
+    raise RuntimeError("no C++ compiler found: set CXX or put g++ on PATH")
+
+
+def host_library_path() -> Path:
+    digest = hashlib.sha256(
+        b"".join(src.read_bytes() for src in HOST_SOURCES)).hexdigest()[:16]
+    return BUILD_DIR / f"libtpuseg_native-{digest}.so"
+
+
+def build_host() -> Path:
+    """Compile ``HOST_SOURCES`` into one shared library unless it exists;
+    raises with the compiler's output if the build fails."""
+    out = host_library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [host_compiler(), *HOST_FLAGS, "-o", str(tmp),
+           *map(str, HOST_SOURCES), "-lpthread"]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    build_logs["native"] = proc.stdout
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"native library build failed (exit "
+                           f"{proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, out)
+    return out
 
 
 def source(name: str) -> Path:

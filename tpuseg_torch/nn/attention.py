@@ -44,6 +44,46 @@ class SqueezeExcite(nn.Module):
         return x * y[:, :, None, None]
 
 
+class ChannelAttention(nn.Module):
+    """Masked channel attention: a softmax over the channels of the masked
+    spatial mean (plus a projection of ``h_t`` when the module is built
+    with ``h_dim``), scaled by ``d_model``; with ``multiply`` the
+    BatchNorm'd re-weighted map is added back.  flax names the layers in
+    call order, so the last Dense is ``Dense_2`` with ``h_t`` and
+    ``Dense_1`` without."""
+
+    def __init__(self, c: int, d_model: int, reduction: int = 2,
+                 multiply: bool = True, h_dim: int = 0):
+        super().__init__()
+        r = d_model // reduction
+        self.h_dim = h_dim
+        self.multiply = multiply
+        self.Dense_0 = nn.Linear(c, r)
+        if h_dim:
+            self.Dense_1 = nn.Linear(h_dim, r, bias=False)
+        self.add_module(f"Dense_{2 if h_dim else 1}", nn.Linear(r, d_model))
+        if multiply:
+            self.BatchNorm_0 = nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+
+    def forward(self, base, y, h_t=None):
+        """base (B, C, H, W), y (B, 1, H, W) mask, h_t (B, h_dim) or None
+        (exactly when built without ``h_dim``)."""
+        if (h_t is None) != (not self.h_dim):
+            raise ValueError("ChannelAttention: h_t must be given exactly "
+                             "when the module is built with h_dim")
+        z = self.Dense_0((base * y).mean(dim=(2, 3)))
+        if self.h_dim:
+            z = z + self.Dense_1(h_t)
+            last = self.Dense_2
+        else:
+            last = self.Dense_1
+        alpha = torch.softmax(last(torch.tanh(z)), dim=1) * last.out_features
+        if not self.multiply:
+            return alpha
+        return base + batch_norm(self.BatchNorm_0,
+                                 base * alpha[:, :, None, None])
+
+
 class SpatialAttention(nn.Module):
     """Foreground-masked spatial softmax attention with an add-paste
     residual (live-path semantics: ``h_t`` = masked spatial mean)."""

@@ -182,16 +182,21 @@ class InvertedV1Residual(nn.Module):
 
 
 class InvertedResidual(nn.Module):
-    """MobileNetV2 block: pw-expand -> dw3x3 -> pw-linear, each with BN."""
+    """MobileNetV2 block: pw-expand -> dw3x3 (``stride``, ``dilation``) ->
+    pw-linear, each with BN (+ residual when stride 1 and shapes match)."""
 
-    def __init__(self, cin: int, features: int, expand_ratio: int = 2):
+    def __init__(self, cin: int, features: int, stride: int = 1,
+                 expand_ratio: int = 2, dilation: int = 1,
+                 with_relu: bool = False):
         super().__init__()
         hidden = cin * expand_ratio
-        self.use_res = cin == features
+        self.use_res = stride == 1 and cin == features
+        self.with_relu = with_relu
         self.Conv_0 = nn.Conv2d(cin, hidden, 1, bias=False)
         self._BN_0 = _BN(hidden)
-        self.Conv_1 = nn.Conv2d(hidden, hidden, 3, groups=hidden, padding=1,
-                                bias=False)
+        self.Conv_1 = nn.Conv2d(hidden, hidden, 3, stride=stride,
+                                groups=hidden, padding=dilation,
+                                dilation=dilation, bias=False)
         self._BN_1 = _BN(hidden)
         self.Conv_2 = nn.Conv2d(hidden, features, 1, bias=False)
         self._BN_2 = _BN(features)
@@ -200,7 +205,22 @@ class InvertedResidual(nn.Module):
         y = relu6(self._BN_0(self.Conv_0(x)))
         y = relu6(self._BN_1(spatial.conv2d(self.Conv_1, y)))
         y = self._BN_2(self.Conv_2(y))
+        if self.with_relu:
+            y = relu6(y)
         return x + y if self.use_res else y
+
+
+class MobileV1ASPP(InvertedResidual):
+    """pw-expand -> dw3x3 (dilated) -> pw-linear, each with BN, and ReLU6
+    after the last with ``with_relu``: ``InvertedResidual``'s layers under
+    the JAX package's second name."""
+
+    def __init__(self, cin: int, features: int, stride: int = 1,
+                 dilation: int = 1, expand_ratio: int = 2,
+                 with_relu: bool = False):
+        super().__init__(cin, features, stride=stride,
+                         expand_ratio=expand_ratio, dilation=dilation,
+                         with_relu=with_relu)
 
 
 class DoubleConv(nn.Module):

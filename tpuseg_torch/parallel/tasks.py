@@ -381,6 +381,26 @@ def spatial_train(mesh: Mesh, cfg: Config, model_state,
             "launches": _since(before), "comms": list(log)}
 
 
+def spatial_window_origin_fg(mesh: Mesh, fg_mask: np.ndarray,
+                             point_flat: np.ndarray, win: int, stride: int,
+                             group: int) -> Dict:
+    """``decode_split(fg_mask=)``'s window origins
+    (``pyramid.window_origin_fg``) from this rank's rows of the remaining
+    foreground ``fg_mask`` (B, 1, H, W) for the glimpses ``point_flat``
+    (B*group,): (ir, ic) and the tensors the ranks moved.  One rank: the
+    whole mask in one process."""
+    from tpuseg_torch.decoder.pyramid import window_origin_fg
+    from tpuseg_torch.parallel import spatial
+
+    h, w = fg_mask.shape[2:]
+    rows = _rows_or_samples(mesh, fg_mask, True)
+    pts = torch.from_numpy(point_flat).to(mesh.device)
+    with _comms(True) as log, spatial.spatial_context(mesh, h):
+        ir, ic, _, _, _ = window_origin_fg(pts, (h, w), win, stride, rows,
+                                           group)
+    return {"ir": ir.cpu(), "ic": ic.cpu(), "comms": list(log)}
+
+
 def in_turn(mesh: Mesh, calls: Sequence[tuple]) -> list:
     """Several tasks one after another in one set of ranks (one spawn):
     ``calls`` holds ``(task, args)`` pairs; returns their results."""

@@ -18,8 +18,13 @@ inverse of ``tools/convert_reference_weights.py:46-61``:
 * ``MaskedBatchNorm_*`` keeps scale/bias/mean/var; ``decoder_state``'s
   ``baseline`` becomes a buffer of the same name;
 * an SRU cell's ``weight`` (rows, bidir*d*k) is used as ``x @ weight`` on
-  both sides and passes untransposed (it is no Dense ``kernel``); the SRU
-  stack's LayerNorms ``ln{i}`` rename ``scale`` to ``weight``.
+  both sides and passes untransposed (it is no Dense ``kernel``);
+* flax ``LayerNorm`` / ``GroupNorm`` leaves (the SRU stack's ``ln{i}``,
+  ``GroupNorm_*``, the transformer's ``layer_norm``) rename ``scale`` to
+  ``weight``.
+
+A ``Dense`` that feeds a reshape passes as any Dense: the module that
+reshapes keeps flax's NHWC order (``nn/dcgan_decoder.py``).
 
 ``to_flax`` is the exact inverse (so a state trained by the port can be
 compared with, or read by, the JAX package) and ``grads_to_flax`` applies
@@ -57,14 +62,17 @@ def _is_conv_transpose(module_name: str) -> bool:
     return module_name.startswith("ConvTranspose") or module_name == "up"
 
 
-def _is_sru_layer_norm(module_name: str) -> bool:
-    return re.fullmatch(r"ln\d+", module_name) is not None
+def _is_norm(module_name: str) -> bool:
+    """flax LayerNorm / GroupNorm modules, whose ``scale`` is torch's
+    ``weight``."""
+    return re.fullmatch(r"ln\d+|GroupNorm_\d+|layer_norm",
+                        module_name) is not None
 
 
 def _convert(mod: str, leaf: str, a: np.ndarray) -> Tuple[str, np.ndarray]:
     if mod.startswith("BatchNorm"):
         return _BN_NAMES[leaf], a
-    if _is_sru_layer_norm(mod):
+    if _is_norm(mod):
         return {"scale": "weight"}.get(leaf, leaf), a
     if leaf != "kernel":
         return leaf, a
@@ -114,7 +122,7 @@ def _unconvert(owner, mod: str, name: str, a: np.ndarray):
         leaf = {v: k for k, v in _BN_NAMES.items()}[name]
         col = "batch_stats" if leaf in ("mean", "var") else "params"
         return col, leaf, a
-    if isinstance(owner, torch.nn.LayerNorm):
+    if isinstance(owner, (torch.nn.LayerNorm, torch.nn.GroupNorm)):
         return "params", {"weight": "scale"}.get(name, name), a
     if isinstance(owner, SRUCell):
         return "params", name, a
