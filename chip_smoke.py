@@ -171,7 +171,20 @@ split-row entry points, ``sru_scan``) from
     one ``MatchLoss.step`` and one ``DQNSelecter.update`` likewise; each
     forward timed; then the C++ host library (``native/*.cpp``) is built
     with the machine's compiler and its SRU forward held to the Hopper
-    ``sru_fwd_kernel`` at item 7's shape.
+    ``sru_fwd_kernel`` at item 7's shape;
+26. runs the model-production recipes of ``tpuseg_torch/tools`` at the
+    full CVPPP width, cut only in epochs, steps, pools and scenes
+    (``RECIPE_CUTS``): ``overfit_check`` (its cost must drop),
+    ``train_synthetic_e2e`` (FG dice must end > 0.1 above random init;
+    its trained model written by ``write_msgpack`` and read back by
+    ``load_model`` gives the same f32 fg, id maps and counts bit for
+    bit), ``train_density`` (every leaf outside ``density_head`` of its
+    checkpoint bitwise the asset's), the stopping sweep at the JAX
+    defaults with the installed rule's row beside ``stop_params.json``'s
+    record, ``count_diagnosis``, and ``train_hard_r3 --freeze_subtrees
+    count_head,density_head --freeze_bn`` (those subtrees and every batch
+    statistic bitwise the asset's); ``assets/`` must hash the same after;
+    the kernels' launches over the phase are printed.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises: the
@@ -3103,6 +3116,236 @@ def phase_capability(dev, smi, side=CAP_SIDE):
             "seconds": seconds, "card": smi}
 
 
+# phase 26's cuts of the recipes' epochs, steps, pools and scene counts
+# (widths, resolutions, batch sizes and learning rates are the recipes')
+RECIPE_CUTS = {
+    # the instance decoder starts emitting masks after 80-120 epochs
+    # (PERF.md, PR 13): 160 keeps the recipe's FG-dice gate meaningful
+    "train_synthetic_e2e": {"epochs": 160, "eval_every": 40},
+    "train_density": {"steps": 100, "eval_every": 50, "pool": 128,
+                      "n_val": 32},
+    "train_hard_r3": {"epochs": 2, "n_train": 16, "n_val": 16,
+                      "eval_every": 1, "warm_opt": 1, "swa_frac": 1.0},
+}
+# what assets/stop_params.json records for the installed rule (the JAX
+# package's result on its TPU, "hard64@256 seed77")
+STOP_RECORD = {"n": 64, "seed": 77}
+
+
+def _asset_hashes(root):
+    import hashlib
+
+    return {name: hashlib.sha256(open(os.path.join(root, name), "rb")
+                                 .read()).hexdigest()
+            for name in sorted(os.listdir(root))}
+
+
+def _tree_leaves(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _tree_leaves(v, path + (k,))
+        else:
+            yield path + (k,), np.asarray(v)
+
+
+def _pick(tree, path):
+    for p in path:
+        tree = tree[p]
+    return np.asarray(tree)
+
+
+def phase_recipes(dev, smi, work, cfg=None, asset=None, cuts=RECIPE_CUTS,
+                  res=(256, 128), calib_n=32):
+    """The model-production recipes of ``tpuseg_torch/tools`` at the JAX
+    tools' width (``cfg``: ``cvppp_config()``), each cut only in epochs,
+    steps, pools and scenes (``cuts``, printed).  Gates: the tools' own
+    asserts (overfit, e2e FG dice), a written and re-loaded checkpoint
+    giving the in-memory model's f32 id maps and counts bit for bit,
+    ``train_density`` leaving every leaf but ``density_head`` bitwise,
+    ``train_hard_r3 --freeze_subtrees count_head,density_head
+    --freeze_bn`` leaving those subtrees and every batch statistic bitwise,
+    and ``assets/`` unchanged.  Printed, no gate: the calibration sweep at
+    the JAX defaults, the installed rule's row beside its record, the
+    count diagnosis, each kernel's launches over the phase."""
+    import torch
+
+    from tpuseg_torch.cli.common import load_model
+    from tpuseg_torch.configs import cvppp_config
+    from tpuseg_torch.data.synthetic import make_scene
+    from tpuseg_torch.kernels.ir_chain import ir_chain
+    from tpuseg_torch.kernels.masked_softmax import masked_softmax
+    from tpuseg_torch.runtime.predict import Predictor
+    from tpuseg_torch.tools import (
+        calibrate_stopping, count_diagnosis, overfit_check, train_density,
+        train_hard_r3, train_synthetic_e2e,
+    )
+    from tpuseg_torch.utils.checkpoint_io import (
+        load_stop_params, read_msgpack, write_msgpack,
+    )
+    from tpuseg_torch.weights import to_flax
+
+    cfg = cfg or cvppp_config()
+    assets = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "assets")
+    asset = asset or os.path.join(assets, "synthetic_ckpt.msgpack")
+    hashes = _asset_hashes(assets)
+    hi, lo = res
+    out = {"cuts": cuts, "card": smi}
+    for name, cut in cuts.items():
+        log(f"  {name}: cut to {cut}")
+    reset_counts()
+    t_phase = time.perf_counter()
+
+    def timed(label, fn):
+        torch.cuda.synchronize() if dev.type == "cuda" else None
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize() if dev.type == "cuda" else None
+        out.setdefault("seconds", {})[label] = time.perf_counter() - t
+        log(f"  {label}: {out['seconds'][label]:.1f} s")
+        return r
+
+    # -- overfit: two 256^2 scenes, 40 f32 steps; last-5 mean < first-5
+    costs = timed("overfit_check", lambda: overfit_check.run(
+        cfg, 40, dev, res=hi))
+    out["overfit"] = {"first5": float(np.mean(costs[:5])),
+                      "last5": float(np.mean(costs[-5:]))}
+
+    # -- e2e learning evidence, cut in epochs; the tool's FG-dice gate
+    ecfg = train_synthetic_e2e.recipe_config(lo, cfg=cfg)
+    e2e = timed("train_synthetic_e2e", lambda: train_synthetic_e2e.run(
+        ecfg, root=os.path.join(work, "e2e"), device=dev,
+        **cuts["train_synthetic_e2e"]))
+    out["e2e"] = {k: e2e[k] for k in ("sbd0", "fg0", "sbd1", "fg1",
+                                       "best_sbd", "best_epoch", "steps",
+                                       "steps_per_s")}
+    # a checkpoint written by write_msgpack and read back by load_model:
+    # the in-memory model's f32 outputs, bit for bit
+    path = os.path.join(work, "e2e_final.msgpack")
+    write_msgpack(path, to_flax(e2e["model"]))
+    lcfg, loaded = load_model(ecfg, path)
+    if lcfg != ecfg:
+        raise AssertionError("load_model changed the e2e configuration")
+    rng = np.random.default_rng(5)
+    imgs = np.stack([make_scene(rng, lo, lo)[0] for _ in range(16)])
+    got = []
+    for m, c in ((copy.deepcopy(e2e["model"]), ecfg), (loaded, lcfg)):
+        p = Predictor(c, m, batch_size=16, device=dev, dtype=torch.float32)
+        got.append([t.cpu() for t in p.predict_batch_arrays(imgs)[1:]])
+    for a, b, what in zip(*got, ("fg", "idmap", "counts")):
+        if not torch.equal(a, b):
+            raise AssertionError(f"re-loaded checkpoint: {what} differs")
+    out["e2e"]["reload_counts"] = got[1][2].tolist()
+    log(f"  e2e: written + re-loaded checkpoint gives the in-memory "
+        f"model's f32 fg, id maps and counts bit for bit "
+        f"(counts {got[1][2].tolist()})")
+
+    # -- density head on the frozen asset; nothing else may move
+    dout = os.path.join(work, "density.msgpack")
+    dens = timed("train_density", lambda: train_density.run(
+        train_density.recipe_config(hi, cfg=cfg), asset, dout, device=dev,
+        cache_dir=os.path.join(work, "pool"), **cuts["train_density"]))
+    before, after = read_msgpack(asset), read_msgpack(dout)
+    n_same = 0
+    for path_, a in _tree_leaves(after):
+        if path_[:2] == ("params", "density_head"):
+            continue
+        b = _pick(before, path_)
+        if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            raise AssertionError(f"train_density moved {'/'.join(path_)}")
+        n_same += 1
+    out["density"] = {k: dens[k] for k in ("best_mae", "a", "b",
+                                            "calibrated_mae", "steps")}
+    out["density"]["leaves_bitwise"] = n_same
+    log(f"  train_density: {n_same} leaves outside density_head bitwise "
+        f"the asset's")
+
+    # -- the stopping-rule sweep at the JAX defaults (f32), and the
+    # installed rule's row beside what stop_params.json records
+    def calibrate():
+        p = calibrate_stopping.calibration_predictor(cfg, asset, hi, 16,
+                                                     False, dev)
+        scenes = calibrate_stopping.hard_scenes(
+            max(calib_n, STOP_RECORD["n"]), hi, STOP_RECORD["seed"])
+        preps = calibrate_stopping.prep_batches(p, scenes[0])
+        # the first calib_n scenes are the JAX default's (the same draws)
+        assert calib_n % p.batch_size == 0
+        rows = calibrate_stopping.sweep(
+            p, preps[:calib_n // p.batch_size], scenes[1][:calib_n], scenes[2][:calib_n],
+            [0.006, 0.012, 0.024], [2, 3], [0.0, 0.5, 0.7, 0.9, 1.1],
+            [-1.0])
+        stop = load_stop_params()
+        row = calibrate_stopping.sweep_point(
+            p, preps, scenes[1], scenes[2],
+            calibrate_stopping.stop_tuple(*stop))
+        return rows, stop, row
+
+    rows, stop, row = timed("calibrate_stopping", calibrate)
+    with open(os.path.join(assets, "stop_params.json")) as f:
+        record = json.load(f)
+    out["calibration"] = {"best": rows[0], "rows": rows,
+                          "installed": {"stop_params": list(map(float, stop)),
+                                        **row},
+                          "record": {k: record[k] for k in (
+                              "sbd", "abs_dic", "calibrated_on")}}
+    log(f"  calibration (hard{calib_n}@{hi} seed{STOP_RECORD['seed']}, "
+        f"default grid, f32): best {rows[0]}")
+    log(f"  installed rule {stop} on hard{STOP_RECORD['n']}@{hi} seed"
+        f"{STOP_RECORD['seed']}: SBD {row['sbd']:.4f} |DiC| "
+        f"{row['abs_dic']:.4f} (stop_params.json records SBD "
+        f"{record['sbd']} |DiC| {record['abs_dic']}, the JAX package's "
+        f"TPU run), rounds to done {row['rounds_to_done']:.2f}")
+
+    # -- the count diagnosis under the installed rule (JAX defaults)
+    diag = timed("count_diagnosis", lambda: count_diagnosis.diagnose(
+        cfg, asset, res=hi, device=dev))
+    out["count_diagnosis"] = {
+        "abs_dic": float(np.abs(diag["extracted"] - diag["gt"]).mean()),
+        "head_abs_dic": float(np.abs(diag["budget"] - diag["gt"]).mean()),
+        "sbd": float(diag["sbd"].mean()),
+        "oracle_gt_abs_dic": float(np.abs(diag["oracle_extracted"]
+                                          - diag["gt"]).mean()),
+        "oracle_gt_sbd": float(diag["oracle_sbd"].mean())}
+
+    # -- hard fine-tune with the counting heads and BN statistics pinned
+    hard = timed("train_hard_r3", lambda: train_hard_r3.run(
+        train_hard_r3.recipe_config(lo, cfg=cfg), root=os.path.join(
+            work, "r3"), out=os.path.join(work, "hard.msgpack"), device=dev,
+        resume_from=asset, freeze_bn=True,
+        freeze_subtrees="count_head,density_head", **cuts["train_hard_r3"]))
+    final = to_flax(hard["state"].model)
+    stored = read_msgpack(asset)
+    n_pinned = 0
+    for col in ("params", "batch_stats"):
+        for path_, a in _tree_leaves(final[col]):
+            if col == "params" and path_[0] not in ("count_head",
+                                                    "density_head"):
+                continue
+            b = _pick(stored[col], path_)
+            if a.tobytes() != b.tobytes():
+                raise AssertionError(
+                    f"train_hard_r3 moved pinned {col}/{'/'.join(path_)}")
+            n_pinned += 1
+    out["hard_r3"] = {"start": hard["start"], "best": hard["best"],
+                      "best_epoch": hard["best_epoch"],
+                      "saved": hard["saved"], "swa_n": hard["swa_n"],
+                      "pinned_leaves_bitwise": n_pinned}
+    log(f"  train_hard_r3: {n_pinned} pinned leaves (count_head, "
+        f"density_head, every batch statistic) bitwise the asset's")
+
+    out["launches"] = {"ir_chain": ir_chain.launches,
+                       "masked_softmax_forward":
+                           masked_softmax.forward_launches,
+                       "masked_softmax_backward":
+                           masked_softmax.backward_launches}
+    if _asset_hashes(assets) != hashes:
+        raise AssertionError("the recipes changed a file under assets/")
+    out["seconds"]["total"] = time.perf_counter() - t_phase
+    log(f"  recipes: launches over the phase {out['launches']}; assets/ "
+        f"unchanged; {out['seconds']['total']:.1f} s; card: {smi}")
+    return out
+
+
 def make_images(n, seed):
     from tpuseg_torch.data.synthetic import label_map, make_scene
 
@@ -3415,6 +3658,11 @@ def main() -> int:
         t0 = time.perf_counter()
         capability = phase_capability(dev, smi)
         log(f"phase capability: {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 26: the model-production recipes (tpuseg_torch/tools)
+        t0 = time.perf_counter()
+        recipes = phase_recipes(dev, smi, os.path.join(work, "recipes"))
+        log(f"phase recipes: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3436,6 +3684,8 @@ def main() -> int:
         "cluster": cluster, "debug": debug, "dp_fit": dp_fit,
         "mesh_predict": mesh_pred, "dp_cli": dp_cli, "trace": trace,
         "spatial": spatial_run, "capability": capability,
+        "recipes": {k: v for k, v in recipes.items()
+                    if k != "calibration"},
         "seconds": time.perf_counter() - t_all,
     }
     log("summary " + json.dumps(summary))
@@ -3444,6 +3694,7 @@ def main() -> int:
     log("sru_scan rows " + json.dumps(sru_rows))
     log("ir_chain bucket rows " + json.dumps(bucket_rows))
     log("masked_softmax split rows " + json.dumps(split_rows))
+    log("recipes calibration " + json.dumps(recipes["calibration"]))
     # the training path's scan: uni, k = 3, identity, dropout mask, 35 steps
     sru_main = [r for r in sru_rows if r["length"] == SRU_LM["length"]
                 and not r["bidirectional"] and r["activation"] == 0

@@ -64,6 +64,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
         assert f"tpuseg_torch.{name}" in res["imported"], name
     # and the spatial slice's
     assert "tpuseg_torch.parallel.spatial" in res["imported"]
+    # and the model-production recipes'
+    for name in ("overfit_check", "train_synthetic_e2e", "train_density",
+                 "calibrate_stopping", "count_diagnosis", "train_hard_r3"):
+        assert f"tpuseg_torch.tools.{name}" in res["imported"], name
     # and the capability modules'
     for name in ("nn.native", "nn.aspp", "nn.transformer", "nn.embedding",
                  "nn.conv_gru", "nn.hourglass", "nn.vgg16", "nn.dqn",
@@ -222,3 +226,64 @@ def test_a_rank_that_imports_jax_fails_even_beside_tensorflow(task):
         return
     with pytest.raises(RuntimeError, match=r"imported \['jax \(by test_"):
         run_ranks(task, 1, device="cpu", timeout=120)
+
+
+# The root tools/ scripts that are not this port's recipes, by why.
+ROOT_TOOLS_LATER_SLICE = {
+    "quality_report", "native_res_report",
+    # a one-time writer of the frozen asset; its function is ported as
+    # ``data/eval_asset.py::freeze_eval_records``
+    "freeze_eval",
+}
+ROOT_TOOLS_MEASUREMENT = {
+    "profile_stages", "profile_components", "profile_decode_scaling",
+    "profile_train", "roofline", "trace_summary", "warmup", "bench_ab",
+    "bench_multi", "bench_scaling", "bench_ir_chain", "tpu_kernel_check",
+    "recache_baseline",
+}
+ROOT_TOOLS_NEED_REFERENCE = {
+    "parity_run", "parity_grads", "parity_terms",
+    "convert_reference_weights", "reference_shim",
+}
+RECIPES = {
+    "overfit_check", "train_synthetic_e2e", "train_density",
+    "calibrate_stopping", "count_diagnosis", "train_hard_r3",
+}
+
+
+def test_every_root_tool_is_ported_or_listed():
+    """Each model-production recipe of the root ``tools/`` has its
+    ``tpuseg_torch/tools/`` counterpart, and every other root script is on
+    one of the named lists, so a new root tool cannot go unnoticed."""
+    root = {p.stem for p in (REPO / "tools").glob("*.py")}
+    port = {p.stem for p in (REPO / "tpuseg_torch" / "tools").glob("*.py")}
+    assert RECIPES <= root and RECIPES <= port, RECIPES - port
+    lists = (ROOT_TOOLS_LATER_SLICE, ROOT_TOOLS_MEASUREMENT,
+             ROOT_TOOLS_NEED_REFERENCE, RECIPES)
+    assert sum(len(s) for s in lists) == len(set().union(*lists))
+    assert sorted(root - set().union(*lists)) == []
+    # a listed script that left the repo leaves its list too
+    assert sorted(set().union(*lists) - root) == []
+    # the port's recipes import nothing of JAX, flax, optax, msgpack or the
+    # JAX package (the import probe above walks them too)
+    for name in RECIPES:
+        tree = ast.parse((REPO / "tpuseg_torch" / "tools" /
+                          f"{name}.py").read_text())
+        for node in ast.walk(tree):
+            mods = ([a.name for a in node.names]
+                    if isinstance(node, ast.Import) else
+                    [node.module or ""] if isinstance(node, ast.ImportFrom)
+                    else [])
+            for m in mods:
+                assert m.split(".")[0] not in (
+                    "jax", "flax", "optax", "msgpack", "tpuseg"), (name, m)
+
+
+def test_recipes_default_to_cuda():
+    """Each recipe raises without CUDA unless given ``--device cpu``."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is usable here")
+    for name in sorted(RECIPES):
+        mod = importlib.import_module(f"tpuseg_torch.tools.{name}")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.main([])

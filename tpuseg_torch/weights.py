@@ -185,9 +185,3 @@ def load_flax(model: torch.nn.Module, variables: Dict[str, Any]):
     model.load_state_dict(from_flax(variables), strict=True)
     return model
 
-
-def load_checkpoint(model: torch.nn.Module, path: str):
-    """Load a flax msgpack checkpoint file into ``model`` (strict)."""
-    from tpuseg_torch.utils.checkpoint_io import read_msgpack
-
-    return load_flax(model, read_msgpack(path))
