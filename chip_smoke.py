@@ -3120,7 +3120,7 @@ def phase_capability(dev, smi, side=CAP_SIDE):
 # (widths, resolutions, batch sizes and learning rates are the recipes')
 RECIPE_CUTS = {
     # the instance decoder starts emitting masks after 80-120 epochs
-    # (PERF.md, PR 13): 160 keeps the recipe's FG-dice gate meaningful
+    # (PERF.md §6): 160 keeps the recipe's FG-dice gate meaningful
     "train_synthetic_e2e": {"epochs": 160, "eval_every": 40},
     "train_density": {"steps": 100, "eval_every": 50, "pool": 128,
                       "n_val": 32},

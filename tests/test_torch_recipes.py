@@ -161,7 +161,7 @@ def run_jax_e2e(seed: int, epochs: int, root: str, n_filters: int = 0,
     """The JAX package's ``tools/train_synthetic_e2e.py`` as it is, except
     for its records / output root (``root`` for ``/tmp/tpuseg_e2e``), the
     training seed (``cfg.train.seed``) and optionally the width: the
-    learning-evidence reference for the port's recipe (PERF.md, PR 13)."""
+    learning-evidence reference for the port's recipe (PERF.md §6)."""
     src = open(os.path.join(REPO, "tools", "train_synthetic_e2e.py")).read()
     src = src.replace('"/tmp/tpuseg_e2e/trained_ckpt.msgpack"',
                       repr(os.path.join(root, "trained_ckpt.msgpack")))
