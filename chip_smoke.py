@@ -3140,20 +3140,6 @@ def _asset_hashes(root):
             for name in sorted(os.listdir(root))}
 
 
-def _tree_leaves(tree, path=()):
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _tree_leaves(v, path + (k,))
-        else:
-            yield path + (k,), np.asarray(v)
-
-
-def _pick(tree, path):
-    for p in path:
-        tree = tree[p]
-    return np.asarray(tree)
-
-
 def phase_recipes(dev, smi, work, cfg=None, asset=None, cuts=RECIPE_CUTS,
                   res=(256, 128), calib_n=32):
     """The model-production recipes of ``tpuseg_torch/tools`` at the JAX
@@ -3180,9 +3166,13 @@ def phase_recipes(dev, smi, work, cfg=None, asset=None, cuts=RECIPE_CUTS,
         train_hard_r3, train_synthetic_e2e,
     )
     from tpuseg_torch.utils.checkpoint_io import (
-        load_stop_params, read_msgpack, write_msgpack,
+        flatten, load_stop_params, read_msgpack, write_msgpack,
     )
     from tpuseg_torch.weights import to_flax
+
+    def same_leaf(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.dtype == b.dtype and a.tobytes() == b.tobytes()
 
     cfg = cfg or cvppp_config()
     assets = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -3245,14 +3235,13 @@ def phase_recipes(dev, smi, work, cfg=None, asset=None, cuts=RECIPE_CUTS,
     dens = timed("train_density", lambda: train_density.run(
         train_density.recipe_config(hi, cfg=cfg), asset, dout, device=dev,
         cache_dir=os.path.join(work, "pool"), **cuts["train_density"]))
-    before, after = read_msgpack(asset), read_msgpack(dout)
+    before = flatten(read_msgpack(asset), "/")
     n_same = 0
-    for path_, a in _tree_leaves(after):
-        if path_[:2] == ("params", "density_head"):
+    for key, a in flatten(read_msgpack(dout), "/").items():
+        if key.startswith("params/density_head/"):
             continue
-        b = _pick(before, path_)
-        if a.dtype != b.dtype or a.tobytes() != b.tobytes():
-            raise AssertionError(f"train_density moved {'/'.join(path_)}")
+        if not same_leaf(a, before[key]):
+            raise AssertionError(f"train_density moved {key}")
         n_same += 1
     out["density"] = {k: dens[k] for k in ("best_mae", "a", "b",
                                             "calibrated_mae", "steps")}
@@ -3271,9 +3260,8 @@ def phase_recipes(dev, smi, work, cfg=None, asset=None, cuts=RECIPE_CUTS,
         # the first calib_n scenes are the JAX default's (the same draws)
         assert calib_n % p.batch_size == 0
         rows = calibrate_stopping.sweep(
-            p, preps[:calib_n // p.batch_size], scenes[1][:calib_n], scenes[2][:calib_n],
-            [0.006, 0.012, 0.024], [2, 3], [0.0, 0.5, 0.7, 0.9, 1.1],
-            [-1.0])
+            p, preps[:calib_n // p.batch_size], scenes[1][:calib_n],
+            scenes[2][:calib_n], *calibrate_stopping.DEFAULT_GRID)
         stop = load_stop_params()
         row = calibrate_stopping.sweep_point(
             p, preps, scenes[1], scenes[2],
@@ -3313,19 +3301,17 @@ def phase_recipes(dev, smi, work, cfg=None, asset=None, cuts=RECIPE_CUTS,
             work, "r3"), out=os.path.join(work, "hard.msgpack"), device=dev,
         resume_from=asset, freeze_bn=True,
         freeze_subtrees="count_head,density_head", **cuts["train_hard_r3"]))
-    final = to_flax(hard["state"].model)
-    stored = read_msgpack(asset)
+    final = flatten(to_flax(hard["state"].model), "/")
+    stored = flatten(read_msgpack(asset), "/")
     n_pinned = 0
-    for col in ("params", "batch_stats"):
-        for path_, a in _tree_leaves(final[col]):
-            if col == "params" and path_[0] not in ("count_head",
-                                                    "density_head"):
-                continue
-            b = _pick(stored[col], path_)
-            if a.tobytes() != b.tobytes():
-                raise AssertionError(
-                    f"train_hard_r3 moved pinned {col}/{'/'.join(path_)}")
-            n_pinned += 1
+    for key, a in final.items():
+        col, sub = key.split("/")[:2]
+        if not (col == "batch_stats" or col == "params" and sub in (
+                "count_head", "density_head")):
+            continue
+        if not same_leaf(a, stored[key]):
+            raise AssertionError(f"train_hard_r3 moved pinned {key}")
+        n_pinned += 1
     out["hard_r3"] = {"start": hard["start"], "best": hard["best"],
                       "best_epoch": hard["best_epoch"],
                       "saved": hard["saved"], "swa_n": hard["swa_n"],

@@ -159,9 +159,7 @@ def test_load_model_merges_as_the_jax_clis_do(written, one_init, tmp_path):
     want_stored = dict(_leaves(stored))
     jl = dict(_leaves(jax.tree_util.tree_map(np.asarray, dict(jvars))))
     tl = dict(_leaves(to_flax(port)))
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(0)
-        init = dict(_leaves(to_flax(ReSeg(tcfg))))
+    init = dict(_leaves(to_flax(init_model(tcfg, seed=0))))
     assert sorted(jl) == sorted(tl)
     n_taken = 0
     for k in jl:
@@ -216,9 +214,7 @@ def test_port_train_state_files_load_merge_style(tmp_path):
     lines = out.getvalue()
     assert "missing in ckpt: /channel_attend" in lines
     assert "shape mismatch at /sem_seg_output/weight" in lines
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(0)
-        init = ReSeg(cfg).state_dict()
+    init = init_model(cfg, seed=0).state_dict()
     for k, v in model.state_dict().items():
         want = init[k] if k in dropped or k == "sem_seg_output.weight" \
             else sd[k]

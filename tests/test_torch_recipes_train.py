@@ -355,6 +355,55 @@ def test_overfit_and_e2e_recipes_run_and_write_only_where_told(
     assert target.read_bytes() == open(r2["out"], "rb").read()
 
 
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize("tool", ["overfit_check", "train_synthetic_e2e",
+                                  "train_density", "train_hard_r3"])
+def test_recipes_train_with_tf32_off(tool, monkeypatch):
+    """Each training recipe runs in float32 with TF32 off, as the JAX
+    recipe computes it, and puts PyTorch's settings back after."""
+    mod = {"overfit_check": overfit_check,
+           "train_synthetic_e2e": train_synthetic_e2e,
+           "train_density": train_density,
+           "train_hard_r3": train_hard_r3}[tool]
+    seen = []
+
+    def spy(device):  # the first call of every recipe's run
+        seen.append((torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32))
+        raise _Stop
+
+    monkeypatch.setattr(mod, "resolve_device", spy)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(_Stop):
+        mod.run(tiny(cvppp_config()))
+    assert seen == [(False, False)]
+    assert torch.backends.cudnn.allow_tf32
+    assert torch.backends.cuda.matmul.allow_tf32
+
+
+def test_outputs_default_to_the_temp_dir_and_the_pool_cache_key():
+    import tempfile
+
+    from tpuseg_torch.tools import calibrate_stopping
+
+    tmp = tempfile.gettempdir()
+    for d in (train_synthetic_e2e.ROOT, train_hard_r3.ROOT,
+              calibrate_stopping.OUT_DIR):
+        assert os.path.dirname(d) == tmp
+    base = dict(cache_dir="c", pool=8, res=32, seed=5, hard_frac=0.5,
+                max_leaves=14)
+    path = train_density.pool_cache_path(**base)
+    assert path == train_density.pool_cache_path(**base)
+    assert os.path.dirname(path) == "c"
+    for k, v in (("pool", 9), ("res", 64), ("seed", 6), ("hard_frac", 1.0),
+                 ("max_leaves", 12)):
+        assert train_density.pool_cache_path(**{**base, k: v}) != path, k
+
+
 def test_density_install_needs_an_explicit_checkpoint():
     with pytest.raises(SystemExit):
         with contextlib.redirect_stderr(io.StringIO()):

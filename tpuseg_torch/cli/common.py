@@ -44,9 +44,10 @@ def load_model(cfg: Config, model_path: str):
     merge-style as the JAX CLIs' ``load_variables`` does: from a flax
     ``.msgpack`` file or from a train state ``runtime/checkpoint
     .save_checkpoint`` wrote, every stored leaf whose path and shape match
-    overlays the seeded init (``utils/checkpoint_io.merge_restore``), and
-    any other leaf keeps its init with a printed warning.  A path that does
-    not exist gives the seeded random init, as the JAX CLI's does; any
+    overlays the init of the JAX package's distribution
+    (:func:`init_model` at seed 0; ``utils/checkpoint_io.merge_restore``),
+    and any other leaf keeps that init with a printed warning.  A path
+    that does not exist gives torch's seeded random init (seed 0); any
     other file raises ``ValueError``."""
     if not os.path.exists(model_path):
         print(f"  [load] no checkpoint at {model_path!r} — random init "
@@ -55,12 +56,12 @@ def load_model(cfg: Config, model_path: str):
     print(f"Loading model from {model_path}")
     if model_path.endswith(".msgpack") and os.path.isfile(model_path):
         cfg = adapt_cfg_to_checkpoint(cfg, model_path)
-        model = _seeded_model(cfg)
+        model = init_model(cfg)
         return cfg, load_flax(model, merge_restore(to_flax(model),
                                                    read_msgpack(model_path)))
     state = read_model_state(model_path)
     cfg = adapt_cfg_to_heads(cfg, {k.split(".")[0] for k in state})
-    model = _seeded_model(cfg)
+    model = init_model(cfg)
     init = {k: v.numpy() for k, v in model.state_dict().items()}
     merged = flatten(merge_restore(nest(init), nest(
         {k: v.numpy() for k, v in state.items()})))

@@ -11,9 +11,10 @@ extraction rounds, so each batch of hard-preset synthetic scenes is
 prepped once (``Predictor._infer_prep``) and every grid point re-runs only
 the rounds, one at a time from the carry, until every sample is done.
 Each point is scored ``SBD - dic_weight * |DiC|``; the sorted table goes to
-``--out`` (default ``/tmp/tpuseg_torch_calib/CALIBRATION.md``) and the best
-point to ``--stop-params-out`` (default
-``/tmp/tpuseg_torch_calib/stop_params.json``; ``--no-install``: none).
+``--out`` (default ``CALIBRATION.md`` under ``tpuseg_torch_calib`` in the
+temporary directory) and the best point to ``--stop-params-out`` (default
+``stop_params.json`` beside it; ``--no-install``: none).  The default
+grid is ``DEFAULT_GRID``.
 Neither default is the repo's ``CALIBRATION.md`` or
 ``assets/stop_params.json``.  Runs on the card unless given
 ``--device cpu``.
@@ -26,6 +27,7 @@ import dataclasses
 import itertools
 import json
 import os
+import tempfile
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -41,7 +43,11 @@ from tpuseg_torch.runtime.predict import Predictor
 
 ASSET = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
                      os.pardir, "assets", "synthetic_ckpt.msgpack")
-OUT_DIR = "/tmp/tpuseg_torch_calib"
+OUT_DIR = os.path.join(tempfile.gettempdir(), "tpuseg_torch_calib")
+# (min_remaining_frac, max_extract_misses, peak_suppress_factor,
+# stop_remaining_frac) values swept; a stop fraction <= 0 follows min_frac
+DEFAULT_GRID = ((0.006, 0.012, 0.024), (2, 3), (0.0, 0.5, 0.7, 0.9, 1.1),
+                (-1.0,))
 
 
 def hard_scenes(n: int, res: int, seed: int, max_leaves: int = 14):
@@ -187,11 +193,9 @@ def main(argv: Optional[List[str]] = None) -> List[Dict]:
     ap.add_argument("--out", default=os.path.join(OUT_DIR, "CALIBRATION.md"))
     ap.add_argument("--stop-params-out",
                     default=os.path.join(OUT_DIR, "stop_params.json"))
-    ap.add_argument("--grid-frac", default="0.006,0.012,0.024")
-    ap.add_argument("--grid-miss", default="2,3")
-    ap.add_argument("--grid-sup", default="0.0,0.5,0.7,0.9,1.1")
-    ap.add_argument("--grid-stop", default="-1.0",
-                    help="stop_remaining_frac values; <=0 follows min_frac")
+    for flag, values in zip(("--grid-frac", "--grid-miss", "--grid-sup",
+                             "--grid-stop"), DEFAULT_GRID):
+        ap.add_argument(flag, default=",".join(map(str, values)))
     ap.add_argument("--no-install", action="store_true",
                     help="report only; write no stop-params JSON")
     args = ap.parse_args(argv)

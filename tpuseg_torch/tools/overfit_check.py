@@ -7,8 +7,9 @@ Evidence that the glimpse-decoder training math (REINFORCE + pyramid
 losses + BatchNorm / baseline state + the Adadelta chain) optimises: the
 full-width CVPPP model from its flax-distributed init (seed
 ``cfg.train.seed``), two 256x256 scenes from ``make_scene`` seed 3, 40
-float32 train steps; the mean cost of the last 5 must be below the first
-5's.  Runs on the card unless given ``--device cpu``.
+float32 train steps (TF32 off, as the JAX tool computes them); the mean
+cost of the last 5 must be below the first 5's.  Runs on the card unless
+given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from tpuseg_torch.cli.common import init_model
 from tpuseg_torch.configs import Config, cvppp_config
 from tpuseg_torch.data.dataset import AlignCollate
 from tpuseg_torch.data.synthetic import make_scene
+from tpuseg_torch.runtime.predict import tf32_off
 from tpuseg_torch.runtime.state import create_train_state
 from tpuseg_torch.runtime.train import make_train_step
 
@@ -41,6 +43,9 @@ def overfit_batch(cfg: Config, res: int = 256) -> dict:
     return AlignCollate("test", cfg.data, 2)(samples).asdict()
 
 
+# float32 convolutions and matmuls, as the JAX recipe computes them: with
+# PyTorch's default TF32 the recipe learns less (PERF.md §6)
+@tf32_off()
 def run(cfg: Config, steps: int = 40, device="cuda", res: int = 256
         ) -> List[float]:
     """The recipe on ``cfg``: returns the cost of every step (and asserts

@@ -15,11 +15,13 @@ Streams augmented (D4) batches from a pool of hard and standard synthetic
 scenes; clip(1.0) + Adam on a cosine schedule as optax's chain; a float64
 SWA of the evaluations in the second half; then a closed-form affine count
 calibration folded into ``out_gain`` / ``out_off`` (``--calibrate-only``:
-only that, on the checkpoint's head).  ``--ckpt`` defaults to
-``assets/synthetic_ckpt.msgpack`` (read only); ``--out`` to
-``/tmp/tpuseg_torch_r3/density_ckpt.msgpack``; ``--install`` copies the
-result over ``--ckpt`` and needs ``--ckpt`` given explicitly.  Runs on the
-card unless given ``--device cpu``.
+only that, on the checkpoint's head).  Float32 with TF32 off, as the JAX
+tool computes it.  ``--ckpt`` defaults to ``assets/synthetic_ckpt.msgpack``
+(read only); ``--out`` to ``density_ckpt.msgpack`` under
+``tpuseg_torch_r3`` in the temporary directory, where the scene pool is
+cached too; ``--install`` copies the result over ``--ckpt`` and needs
+``--ckpt`` given explicitly.  Runs on the card unless given
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import hashlib
+import inspect
 import math
 import os
 import shutil
@@ -39,11 +43,12 @@ import torch
 from tpuseg_torch import resolve_device
 from tpuseg_torch.cli.common import init_model
 from tpuseg_torch.configs import Config, cvppp_config
+from tpuseg_torch.data import synthetic
 from tpuseg_torch.data.synthetic import make_scene
 from tpuseg_torch.models.reseg import DENSITY_SCALE
-from tpuseg_torch.runtime.predict import Predictor
+from tpuseg_torch.runtime.predict import Predictor, tf32_off
 from tpuseg_torch.runtime.state import global_norm
-from tpuseg_torch.tools.train_hard_r3 import TreeAverage
+from tpuseg_torch.tools.train_hard_r3 import ROOT, TreeAverage
 from tpuseg_torch.utils.checkpoint_io import (
     merge_restore, read_msgpack, write_msgpack,
 )
@@ -74,6 +79,20 @@ def make_pool(rng, n, res, max_slots, hard_frac=0.5, max_leaves=14):
             labels[i][ins[:, :, k] > 0] = k + 1
         counts[i] = cnt
     return imgs, labels, counts
+
+
+def pool_cache_path(cache_dir: str, pool: int, res: int, seed: int,
+                    hard_frac: float, max_leaves: int) -> str:
+    """The file that caches the training pool of these arguments.  Its
+    name holds a hash of the arguments and of the code that draws the pool
+    (:func:`make_pool` and ``data/synthetic.py``), so a pool drawn by other
+    code or with other arguments is never loaded."""
+    h = hashlib.sha256(repr((pool, res, seed, float(hard_frac), max_leaves,
+                             16)).encode())
+    h.update(inspect.getsource(make_pool).encode())
+    h.update(inspect.getsource(synthetic).encode())
+    return os.path.join(cache_dir, f"pool_{pool}_{res}_{seed}_"
+                                   f"{h.hexdigest()[:16]}.npz")
 
 
 def host_density_target(labels, counts, max_slots, scale):
@@ -211,13 +230,15 @@ def load_asset(cfg: Config, ckpt: str, device):
     return model.to(device).float().eval()
 
 
+# float32 convolutions, as the JAX tool computes them (PERF.md §6)
+@tf32_off()
 def run(cfg: Config, ckpt: str = ASSET,
-        out: str = "/tmp/tpuseg_torch_r3/density_ckpt.msgpack",
+        out: str = os.path.join(ROOT, "density_ckpt.msgpack"),
         steps: int = 3000, batch: int = 16, lr: float = 5e-4,
         eval_every: int = 250, n_val: int = 128, seed: int = 5,
         pool: int = 1500, max_leaves: int = 14, calibrate_only: bool = False,
         hard_frac: float = 0.5, install: bool = False, device="cuda",
-        cache_dir: str = "/tmp/tpuseg_torch_r3") -> Dict:
+        cache_dir: str = ROOT) -> Dict:
     """The recipe on ``recipe_config``'s ``cfg``; returns the best val MAE,
     the calibration and the output path."""
     dev = resolve_device(device)
@@ -239,9 +260,8 @@ def run(cfg: Config, ckpt: str = ASSET,
 
     rng = np.random.default_rng(seed)
     if not calibrate_only:
-        hf = f"_h{int(round(hard_frac * 100)):02d}"
-        cache = os.path.join(cache_dir, f"pool_{pool}_{res}_{seed}"
-                             f"{hf if hard_frac != 0.5 else ''}.npz")
+        cache = pool_cache_path(cache_dir, pool, res, seed, hard_frac,
+                                max_leaves)
         if os.path.isfile(cache):
             d = np.load(cache)
             pi, pl, pc = d["pi"], d["pl"], d["pc"]
@@ -358,7 +378,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     ap.add_argument("--ckpt", default=None,
                     help="checkpoint to start from (default "
                          "assets/synthetic_ckpt.msgpack, read only)")
-    ap.add_argument("--out", default="/tmp/tpuseg_torch_r3/density_ckpt.msgpack")
+    ap.add_argument("--out",
+                    default=os.path.join(ROOT, "density_ckpt.msgpack"))
     ap.add_argument("--steps", type=int, default=3000)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--res", type=int, default=256)

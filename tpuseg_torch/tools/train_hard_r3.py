@@ -23,9 +23,11 @@ extraction chain under the installed stopping rule (SBD - dic_weight x
   parameters and statistics is evaluated as one more candidate.
 
 The best weights go to ``--out`` (default
-``/tmp/tpuseg_torch_r3/hard_ckpt.msgpack``) as a flax msgpack;
-``--install_bar`` copies them to ``--install_to`` (no default).  Runs on
-the card unless given ``--device cpu``.
+``hard_ckpt.msgpack`` under ``tpuseg_torch_r3`` in the temporary
+directory) as a flax msgpack;
+``--install_bar`` copies them to ``--install_to`` (no default).  Training
+runs float32 with TF32 off unless given ``--bf16``.  Runs on the card
+unless given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import copy
 import dataclasses
 import os
 import shutil
+import tempfile
 import time
 from typing import Dict, List, Optional
 
@@ -49,6 +52,7 @@ from tpuseg_torch.data.loader import PrefetchLoader
 from tpuseg_torch.data.records import SegRecordDataset
 from tpuseg_torch.data.synthetic import write_synthetic_records
 from tpuseg_torch.evalm.metrics import calc_dice, symmetric_best_dice_batch
+from tpuseg_torch.runtime.predict import tf32_off
 from tpuseg_torch.runtime.state import create_train_state
 from tpuseg_torch.runtime.train import make_train_step
 from tpuseg_torch.tools.train_synthetic_e2e import ASSET, extract, gt_labels
@@ -56,6 +60,8 @@ from tpuseg_torch.utils.checkpoint_io import (
     load_stop_params, merge_restore, read_msgpack, write_msgpack,
 )
 from tpuseg_torch.weights import load_flax, to_flax
+
+ROOT = os.path.join(tempfile.gettempdir(), "tpuseg_torch_r3")
 
 
 def evaluate_full(cfg: Config, model, ds, n: int, batch: int = 16,
@@ -156,14 +162,17 @@ def recipe_config(res: int = 128, batch_size: int = 8, lr0: float = 0.3,
     )
 
 
+# float32 convolutions and matmuls, as the JAX recipe computes them: with
+# PyTorch's default TF32 the recipe learns less (PERF.md §6)
+@tf32_off()
 def run(cfg: Config, epochs: int = 300, n_train: int = 160, n_val: int = 32,
         eval_every: int = 10, lr_min: float = 0.02, max_leaves: int = 14,
         min_leaves: int = 3, dic_weight: float = 0.05, resume: bool = True,
-        out: str = "/tmp/tpuseg_torch_r3/hard_ckpt.msgpack",
+        out: str = os.path.join(ROOT, "hard_ckpt.msgpack"),
         install_bar: float = 0.0, install_to: str = "", bf16: bool = False,
         seed: int = 31, swa_frac: float = 0.0, freeze_bn: bool = False,
         warm_opt: int = 0, eval_res: int = 0, freeze_subtrees: str = "",
-        root: str = "/tmp/tpuseg_torch_r3", device="cuda",
+        root: str = ROOT, device="cuda",
         resume_from: str = ASSET, n_workers: int = 4,
         eval_batch: int = 16) -> Dict:
     """The recipe on ``recipe_config``'s ``cfg``; returns the start and
@@ -321,7 +330,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     p.add_argument("--min_leaves", type=int, default=3)
     p.add_argument("--dic_weight", type=float, default=0.05)
     p.add_argument("--no_resume", action="store_true")
-    p.add_argument("--out", default="/tmp/tpuseg_torch_r3/hard_ckpt.msgpack")
+    p.add_argument("--out", default=os.path.join(ROOT, "hard_ckpt.msgpack"))
     p.add_argument("--install_bar", type=float, default=0.0)
     p.add_argument("--install_to", default="",
                    help="where --install_bar copies the best weights")
@@ -340,7 +349,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                         "asset values (e.g. count_head,density_head)")
     p.add_argument("--eval_res", type=int, default=0,
                    help="selection-val resolution (0 = same as --res)")
-    p.add_argument("--root", default="/tmp/tpuseg_torch_r3",
+    p.add_argument("--root", default=ROOT,
                    help="directory of the records")
     p.add_argument("--device", default="cuda")
     a = p.parse_args(argv)

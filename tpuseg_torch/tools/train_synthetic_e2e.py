@@ -3,22 +3,22 @@ validation SBD / FG dice improve far beyond random init (port of
 ``tools/train_synthetic_e2e.py``).
 
     python -m tpuseg_torch.tools.train_synthetic_e2e [--epochs 200]
-        [--res 128] [--seed 23] [--init flax|torch] [--n_filters 32]
-        [--out PATH] [--device cpu]
+        [--res 128] [--seed 23] [--n_filters 32] [--out PATH]
+        [--device cpu]
 
 The full stack at a reduced resolution: records (``write_synthetic_records``
 seeds 1 and 2) -> the augmented ``PrefetchLoader`` (4 workers) -> the
-port's ``make_train_step`` (float32, Adadelta at lr 1.0) -> the weights of
+port's ``make_train_step`` (float32 with TF32 off, as the JAX recipe
+computes it; Adadelta at lr 1.0) -> the weights of
 the best evaluation -> batched instance extraction (``Predictor``, float32
 with TF32 off, unwindowed as the JAX ``infer`` mode) -> SBD / FG dice.
 The model starts from the JAX package's init distribution
-(``cli/common.py::init_model``; ``--init torch``: torch's default one, as
-``ReSeg(cfg)`` and the train CLI draw it) at ``cfg.train.seed``, or
-``--seed``, which also seeds the loader and the step's generator.
+(``cli/common.py::init_model``) at ``cfg.train.seed``, or ``--seed``,
+which also seeds the loader and the step's generator.
 
 ``TPUSEG_RESUME=1`` starts from ``assets/synthetic_ckpt.msgpack`` instead,
 merge-style.  The best weights are written as a flax msgpack to ``--out``
-(default under ``/tmp/tpuseg_torch_e2e``); ``--install_bar`` copies them
+(default under ``tpuseg_torch_e2e`` in the temporary directory); ``--install_bar`` copies them
 to ``--install_to`` (no default) when the best SBD clears the bar.  Runs
 on the card unless given ``--device cpu``.
 """
@@ -30,6 +30,7 @@ import copy
 import dataclasses
 import os
 import shutil
+import tempfile
 import time
 from typing import Dict, List, Optional
 
@@ -44,8 +45,7 @@ from tpuseg_torch.data.loader import PrefetchLoader
 from tpuseg_torch.data.records import SegRecordDataset
 from tpuseg_torch.data.synthetic import write_synthetic_records
 from tpuseg_torch.evalm.metrics import calc_dice, symmetric_best_dice_batch
-from tpuseg_torch.models import ReSeg
-from tpuseg_torch.runtime.predict import Predictor
+from tpuseg_torch.runtime.predict import Predictor, tf32_off
 from tpuseg_torch.runtime.state import create_train_state
 from tpuseg_torch.runtime.train import make_train_step
 from tpuseg_torch.utils.checkpoint_io import (
@@ -55,6 +55,7 @@ from tpuseg_torch.weights import load_flax, to_flax
 
 ASSET = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
                      os.pardir, "assets", "synthetic_ckpt.msgpack")
+ROOT = os.path.join(tempfile.gettempdir(), "tpuseg_torch_e2e")
 
 
 def gt_labels(batch: Dict, n_valid: Optional[int] = None) -> np.ndarray:
@@ -122,12 +123,14 @@ def recipe_config(res: int = 128, batch_size: int = 8, lr: float = 1.0,
     )
 
 
+# float32 convolutions and matmuls, as the JAX recipe computes them: with
+# PyTorch's default TF32 the recipe learns less (PERF.md §6)
+@tf32_off()
 def run(cfg: Config, epochs: int = 200, n_train: int = 32, n_val: int = 8,
         eval_every: int = 40, max_leaves: int = 8, out: str = "",
         install_bar: float = 0.0, install_to: str = "",
-        root: str = "/tmp/tpuseg_torch_e2e", device="cuda",
-        resume_from: str = ASSET, n_workers: int = 4,
-        init: str = "flax", eval_device=None) -> Dict:
+        root: str = ROOT, device="cuda", resume_from: str = ASSET,
+        n_workers: int = 4, eval_device=None) -> Dict:
     """The recipe on ``cfg`` (``recipe_config``'s); returns its numbers:
     random-init and final SBD / FG, the best SBD and its epoch, steps,
     seconds of training and steps/s, the output path and the trained
@@ -143,11 +146,7 @@ def run(cfg: Config, epochs: int = 200, n_train: int = 32, n_val: int = 8,
     train_ds = SegRecordDataset(f"{root}/train")
     val_ds = SegRecordDataset(f"{root}/val")
 
-    if init == "flax":
-        model = init_model(cfg, seed=cfg.train.seed)
-    else:  # torch's default initialisation, as ``ReSeg(cfg)`` draws it
-        torch.manual_seed(cfg.train.seed)
-        model = ReSeg(cfg)
+    model = init_model(cfg, seed=cfg.train.seed)
     resumed = os.environ.get("TPUSEG_RESUME", "0") == "1"
     if resumed and os.path.isfile(resume_from):
         load_flax(model, merge_restore(to_flax(model),
@@ -244,13 +243,10 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                    help="where --install_bar copies the best weights")
     p.add_argument("--seed", type=int, default=None,
                    help="training seed (default cfg.train.seed)")
-    p.add_argument("--root", default="/tmp/tpuseg_torch_e2e",
+    p.add_argument("--root", default=ROOT,
                    help="directory of the records and the default --out")
     p.add_argument("--n_filters", type=int, default=0,
                    help="the model's width (0: the configuration's)")
-    p.add_argument("--init", choices=("flax", "torch"), default="flax",
-                   help="the JAX package's init distribution, or torch's "
-                        "default one (the train CLI's)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--eval_device", default=None,
                    help="where the evaluations run (default --device); "
@@ -261,7 +257,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                         n_filters=a.n_filters)
     return run(cfg, a.epochs, a.n_train, a.n_val, a.eval_every,
                a.max_leaves, a.out, a.install_bar, a.install_to, a.root,
-               a.device, init=a.init, eval_device=a.eval_device)
+               a.device, eval_device=a.eval_device)
 
 
 if __name__ == "__main__":
