@@ -185,6 +185,18 @@ split-row entry points, ``sru_scan``) from
     count_head,density_head --freeze_bn`` (those subtrees and every batch
     statistic bitwise the asset's); ``assets/`` must hash the same after;
     the kernels' launches over the phase are printed.
+27. runs the report tools of ``tpuseg_torch/tools``: ``ir_chain``
+    against its plain version (item 13's gates) at every level shape of
+    the 512x512 bucket's windowed decode (window 384 / stride 128), f32 and
+    bf16; ``native_res_report`` at its defaults (24 hard scenes at 512x512,
+    f32, the 256 resize and ``--bucketed``), both paths held to the JAX
+    package's CPU result (``assets/native_res512_jax_f32.json``: counts on
+    every scene, SBD within 1/(8 n), FG dice within 1e-4); then
+    ``quality_report`` at its defaults (eval_hard64, bf16, cold and warm
+    wall seconds, ab_infer's img/s): SBD >= item 10's f32 - 0.01, |DiC|
+    <= f32 + 0.1; each ``pred_list`` process's ``ir_chain`` launches (20 a
+    round); the root ``REPORT.md`` and ``assets/`` must hash the same
+    after.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises: the
@@ -1236,6 +1248,12 @@ def phase_sru_train(dev):
 # The JAX package's bf16 numbers on eval_hard64, taken on a TPU v5e
 # (REPORT.md: evaluate.py output); printed beside the port's, not a gate
 REPORT_TPU_BF16 = {"sbd": 0.8127, "abs_dic": 0.500, "fg_dice": 0.9997}
+# its f32 NATIVE_RES rows (SBD, |DiC|, FG dice) on a TPU v5e (REPORT.md);
+# printed beside the port's, not a gate
+REPORT_TPU_NATIVE = {
+    "resize256": (0.8095716238021851, 0.5416666666666666, 0.9926018888751665),
+    "native_bucketed": (0.5519036687910557, 5.291666666666667,
+                        0.9998220751682917)}
 A1 = ("data", "raw", "CVPPP", "CVPPP2017_LSC_training", "training", "A1")
 
 
@@ -1586,14 +1604,15 @@ def phase_staged(cfg, model, dev, stop, batches, smi):
     return out
 
 
-def bucket_chain_shapes(cfg):
+def bucket_chain_shapes(cfg, sizes=CVPPP_SIZES):
     """{(level, h, w): bucket names} of the ir_chain calls that the decodes
-    of the CVPPP buckets make, windowed as ``decode_split`` windows them."""
+    of the buckets of ``sizes`` make, windowed as ``decode_split`` windows
+    them."""
     from tpuseg_torch.decoder.pyramid import window_plan
     from tpuseg_torch.runtime.predict import Predictor
 
     shapes = {}
-    for name, (h, w) in CVPPP_SIZES.items():
+    for name, (h, w) in sizes.items():
         bh, bw = Predictor._bucket_shape(h, w)
         plan = window_plan(bh, bw, cfg.decoder.extract_window,
                            cfg.decoder.extract_window_stride)
@@ -1606,10 +1625,11 @@ def bucket_chain_shapes(cfg):
     return shapes
 
 
-def phase_bucket_chains(cfg, model, dev, smi):
-    """ir_chain kernel vs plain at every level shape of the CVPPP buckets'
-    decodes (N = BUCKET_B x G), f32 and bf16, with phase 2's gates; ms a
-    call (events), device ms a launch (profiler) and the bound."""
+def phase_bucket_chains(cfg, model, dev, smi, sizes=CVPPP_SIZES):
+    """ir_chain kernel vs plain at every level shape of the decodes of the
+    buckets of ``sizes`` (N = BUCKET_B x G), f32 and bf16, with phase 2's
+    gates; ms a call (events), device ms a launch (profiler) and the
+    bound."""
     import torch
 
     from tpuseg_torch.kernels.ir_chain import (
@@ -1622,7 +1642,7 @@ def phase_bucket_chains(cfg, model, dev, smi):
     levels = model.decoder.bone.levels
     g = torch.Generator(device="cpu").manual_seed(1)
     rows = []
-    for (lvl, h, w), names in sorted(bucket_chain_shapes(cfg).items()):
+    for (lvl, h, w), names in sorted(bucket_chain_shapes(cfg, sizes).items()):
         c = levels[lvl].out_ch
         blocks = [levels[lvl].dil1a, levels[lvl].dil1b, levels[lvl].dil2a,
                   levels[lvl].dil2b]
@@ -3332,6 +3352,140 @@ def phase_recipes(dev, smi, work, cfg=None, asset=None, cuts=RECIPE_CUTS,
     return out
 
 
+# phase 27: the native-res report's canvas, 512x512 (its bucket is its own
+# size); square, so its decode is windowed, the window scaled to 384 /
+# stride 128
+NATIVE_SIZES = {"native512": (512, 512)}
+
+
+def phase_reports(cfg, model, dev, smi, work, cli_eval):
+    """The report tools of ``tpuseg_torch/tools`` on the card.  ir_chain
+    against its plain version at every level shape of the 512x512 bucket's
+    windowed decode (phase 14's function and gates); ``native_res_report``
+    at its defaults (24 hard scenes at 512x512, seed 7, f32, batch 8; the
+    256 resize and ``--bucketed``) held to the JAX package's CPU result
+    (``assets/native_res512_jax_f32.json``) by phase 11's rule: counts
+    equal on every scene, SBD within an eighth of one scene's weight in
+    the mean, FG dice within 1e-4; ``quality_report`` at its defaults
+    (eval_hard64, bf16, batch 16, ab_infer's 128 scenes): SBD >= phase
+    11's f32 - 0.01, |DiC| <= f32 + 0.1.  The CLIs run as subprocesses,
+    each reporting its own ir_chain launches and rounds (20 a round, none
+    may be 0).  The root REPORT.md and assets/ must hash the same after."""
+    import hashlib
+
+    from tpuseg_torch.tools import native_res_report, quality_report
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    assets = os.path.join(here, "assets")
+
+    def protected():
+        with open(os.path.join(here, "REPORT.md"), "rb") as f:
+            return (_asset_hashes(assets), hashlib.sha256(f.read()).hexdigest())
+
+    before = protected()
+    t0 = time.perf_counter()
+    chain_rows = phase_bucket_chains(cfg, copy.deepcopy(model).to(dev).eval(),
+                                     dev, smi, sizes=NATIVE_SIZES)
+    out = {"seconds": {"chains": time.perf_counter() - t0}}
+
+    with open(os.path.join(assets, "native_res512_jax_f32.json")) as f:
+        ref = json.load(f)
+    report = os.path.join(work, "REPORT.md")
+    t0 = time.perf_counter()
+    native = native_res_report.main(["--report", report,
+                                     "--work", os.path.join(work, "native")])
+    out["seconds"]["native_res_report"] = time.perf_counter() - t0
+    with open(native["lst"]) as f:
+        names = [os.path.splitext(os.path.basename(p))[0]
+                 for p in f.read().splitlines() if p]
+    n = len(names)
+    if n != ref["n_images"]:
+        raise AssertionError(f"native_res_report made {n} scenes, the JAX "
+                             f"file holds {ref['n_images']}")
+    for tag, want in ref["paths"].items():
+        got = native[tag]
+        per = _per_image(got["pred_dir"], names)
+        counts = sum(per[r["name"]][0] == r["count"] for r in want["images"])
+        idmaps = sum(per[r["name"]][1] == r["ins_mask_sha256"]
+                     for r in want["images"])
+        launches, rounds = got["ir_chain_launches"], got["rounds"]
+        out[tag] = {"sbd": got["sbd"], "abs_dic": got["dic"],
+                    "fg_dice": got["fg"], "counts_equal_jax_f32": counts,
+                    "idmaps_equal_jax_f32": idmaps,
+                    "ir_chain_launches": launches, "rounds": rounds,
+                    "jax_cpu": {k: want[k] for k in (
+                        "mean_sbd", "mean_abs_dic", "mean_fg_dice")}}
+        log(f"  native_res {tag}: SBD {got['sbd']:.6f} |DiC| "
+            f"{got['dic']:.4f} FG dice {got['fg']:.6f}; JAX package f32 on "
+            f"the CPU SBD {want['mean_sbd']:.6f} |DiC| "
+            f"{want['mean_abs_dic']:.4f} FG dice {want['mean_fg_dice']:.6f};"
+            f" counts equal on {counts}/{n}, id maps (sha256) on {idmaps}/"
+            f"{n}; {launches} ir_chain launches over {rounds} rounds [{smi}]")
+        if launches == 0 or launches != 20 * rounds:
+            raise AssertionError(
+                f"native_res {tag}: ir_chain launches {launches} != 5 levels "
+                f"x 4 blocks x {rounds} rounds")
+        if counts != n:
+            raise AssertionError(
+                f"native_res {tag}: counts equal the JAX reference on only "
+                f"{counts}/{n} scenes")
+        if not (abs(got["sbd"] - want["mean_sbd"]) <= 1 / (8 * n)
+                and abs(got["fg"] - want["mean_fg_dice"]) <= 1e-4):
+            raise AssertionError(
+                f"native_res {tag}: SBD {got['sbd']} / FG {got['fg']} against"
+                f" the JAX package's {want['mean_sbd']} / "
+                f"{want['mean_fg_dice']} ({1 / (8 * n):.2e} / 1e-4)")
+    log(f"  JAX package on a TPU v5e (REPORT.md, NATIVE_RES): resize256 SBD "
+        f"{REPORT_TPU_NATIVE['resize256'][0]} |DiC| "
+        f"{REPORT_TPU_NATIVE['resize256'][1]}; native --bucketed SBD "
+        f"{REPORT_TPU_NATIVE['native_bucketed'][0]} |DiC| "
+        f"{REPORT_TPU_NATIVE['native_bucketed'][1]}")
+
+    t0 = time.perf_counter()
+    quality = quality_report.main(["--report", report])
+    out["seconds"]["quality_report"] = time.perf_counter() - t0
+    f32 = cli_eval["f32"]
+    out["quality"] = {k: quality[k] for k in (
+        "sbd", "dic", "fg", "cold_s", "warm_s", "ab_infer", "card",
+        "ir_chain_launches", "rounds")}
+    log(f"  quality_report bf16 on eval_hard64: SBD {quality['sbd']:.6f} "
+        f"|DiC| {quality['dic']:.4f} FG dice {quality['fg']:.6f} (phase 11 "
+        f"f32: {f32['sbd']:.6f} / {f32['abs_dic']:.4f}); pred_list wall "
+        f"cold {quality['cold_s']:.2f} s, warm {quality['warm_s']:.2f} s; "
+        f"ir_chain launches {quality['ir_chain_launches']} over rounds "
+        f"{quality['rounds']}; ab_infer: {quality['ab_infer']} "
+        f"[{quality['card']}]")
+    for launches, rounds in zip(quality["ir_chain_launches"],
+                                quality["rounds"]):
+        if launches == 0 or launches != 20 * rounds:
+            raise AssertionError(
+                f"quality_report: ir_chain launches {launches} != 5 levels x "
+                f"4 blocks x {rounds} rounds")
+    if not (quality["sbd"] >= f32["sbd"] - 0.01
+            and quality["dic"] <= f32["abs_dic"] + 0.1):
+        raise AssertionError(
+            f"quality_report bf16 SBD {quality['sbd']} |DiC| "
+            f"{quality['dic']} against phase 11's f32 {f32['sbd']} / "
+            f"{f32['abs_dic']} (-0.01 / +0.1)")
+    with open(report) as f:
+        text = f.read()
+    if not (text.startswith("# tpuseg_torch report")
+            and native["section"] in text):
+        raise AssertionError("quality_report's rewrite lost the NATIVE_RES "
+                             "section")
+    if protected() != before:
+        raise AssertionError("the report tools changed the root REPORT.md "
+                             "or a file under assets/")
+    out["chain_rows"] = chain_rows
+    out["ir_chain_launches"] = (
+        sum(out[t]["ir_chain_launches"] for t in ref["paths"])
+        + sum(quality["ir_chain_launches"]))
+    log(f"  reports: {out['ir_chain_launches']} ir_chain launches over the "
+        f"four pred_list runs; REPORT.md and assets/ unchanged; seconds "
+        f"{out['seconds']}")
+    return out
+
+
 def make_images(n, seed):
     from tpuseg_torch.data.synthetic import label_map, make_scene
 
@@ -3649,6 +3803,12 @@ def main() -> int:
         t0 = time.perf_counter()
         recipes = phase_recipes(dev, smi, os.path.join(work, "recipes"))
         log(f"phase recipes: {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 27: the report tools (tpuseg_torch/tools)
+        t0 = time.perf_counter()
+        reports = phase_reports(cfg, model, dev, smi,
+                                os.path.join(work, "reports"), cli_eval)
+        log(f"phase reports: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3672,6 +3832,7 @@ def main() -> int:
         "spatial": spatial_run, "capability": capability,
         "recipes": {k: v for k, v in recipes.items()
                     if k != "calibration"},
+        "reports": {k: v for k, v in reports.items() if k != "chain_rows"},
         "seconds": time.perf_counter() - t_all,
     }
     log("summary " + json.dumps(summary))
@@ -3681,6 +3842,7 @@ def main() -> int:
     log("ir_chain bucket rows " + json.dumps(bucket_rows))
     log("masked_softmax split rows " + json.dumps(split_rows))
     log("recipes calibration " + json.dumps(recipes["calibration"]))
+    log("ir_chain native512 rows " + json.dumps(reports["chain_rows"]))
     # the training path's scan: uni, k = 3, identity, dropout mask, 35 steps
     sru_main = [r for r in sru_rows if r["length"] == SRU_LM["length"]
                 and not r["bidirectional"] and r["activation"] == 0
@@ -3757,6 +3919,19 @@ def main() -> int:
         "bucket_shapes": [{k: r[k] for k in (
             "level", "shape", "dtype", "skip", "ms", "device_ms_per_launch",
             "bound_ms", "bound_by")} for r in bucket_rows],
+        # phase 27: the report tools' four pred_list processes (each its
+        # own count: native_res_report's resize256 and --bucketed, f32;
+        # quality_report's cold and warm runs, bf16), and the 512x512
+        # bucket's windowed level shapes
+        "launches_reports": {
+            "native_resize256": reports["resize256"]["ir_chain_launches"],
+            "native_bucketed":
+                reports["native_bucketed"]["ir_chain_launches"],
+            "quality_cold_warm": reports["quality"]["ir_chain_launches"]},
+        "native512_shapes": [{k: r[k] for k in (
+            "level", "shape", "dtype", "skip", "ms", "device_ms_per_launch",
+            "bound_ms", "bound_by", "max_abs_err")}
+            for r in reports["chain_rows"]],
     }, {
         "name": "masked_softmax",
         "route": "cuda",

@@ -68,6 +68,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     for name in ("overfit_check", "train_synthetic_e2e", "train_density",
                  "calibrate_stopping", "count_diagnosis", "train_hard_r3"):
         assert f"tpuseg_torch.tools.{name}" in res["imported"], name
+    # and the report tools'
+    for name in ("freeze_eval", "native_res_report", "quality_report"):
+        assert f"tpuseg_torch.tools.{name}" in res["imported"], name
     # and the capability modules'
     for name in ("nn.native", "nn.aspp", "nn.transformer", "nn.embedding",
                  "nn.conv_gru", "nn.hourglass", "nn.vgg16", "nn.dqn",
@@ -228,13 +231,7 @@ def test_a_rank_that_imports_jax_fails_even_beside_tensorflow(task):
         run_ranks(task, 1, device="cpu", timeout=120)
 
 
-# The root tools/ scripts that are not this port's recipes, by why.
-ROOT_TOOLS_LATER_SLICE = {
-    "quality_report", "native_res_report",
-    # a one-time writer of the frozen asset; its function is ported as
-    # ``data/eval_asset.py::freeze_eval_records``
-    "freeze_eval",
-}
+# The root tools/ scripts that are not ported, by why.
 ROOT_TOOLS_MEASUREMENT = {
     "profile_stages", "profile_components", "profile_decode_scaling",
     "profile_train", "roofline", "trace_summary", "warmup", "bench_ab",
@@ -249,24 +246,29 @@ RECIPES = {
     "overfit_check", "train_synthetic_e2e", "train_density",
     "calibrate_stopping", "count_diagnosis", "train_hard_r3",
 }
+# the tools that make and judge the evidence: the frozen asset's writer and
+# the two reports
+REPORT_TOOLS = {"freeze_eval", "native_res_report", "quality_report"}
 
 
 def test_every_root_tool_is_ported_or_listed():
-    """Each model-production recipe of the root ``tools/`` has its
-    ``tpuseg_torch/tools/`` counterpart, and every other root script is on
-    one of the named lists, so a new root tool cannot go unnoticed."""
+    """Each model-production recipe and report tool of the root ``tools/``
+    has its ``tpuseg_torch/tools/`` counterpart, and every other root script
+    is on one of the named lists, so a new root tool cannot go unnoticed."""
     root = {p.stem for p in (REPO / "tools").glob("*.py")}
     port = {p.stem for p in (REPO / "tpuseg_torch" / "tools").glob("*.py")}
-    assert RECIPES <= root and RECIPES <= port, RECIPES - port
-    lists = (ROOT_TOOLS_LATER_SLICE, ROOT_TOOLS_MEASUREMENT,
-             ROOT_TOOLS_NEED_REFERENCE, RECIPES)
+    ported = RECIPES | REPORT_TOOLS
+    assert ported <= root and ported <= port, ported - port
+    lists = (ROOT_TOOLS_MEASUREMENT, ROOT_TOOLS_NEED_REFERENCE, RECIPES,
+             REPORT_TOOLS)
     assert sum(len(s) for s in lists) == len(set().union(*lists))
     assert sorted(root - set().union(*lists)) == []
     # a listed script that left the repo leaves its list too
     assert sorted(set().union(*lists) - root) == []
-    # the port's recipes import nothing of JAX, flax, optax, msgpack or the
-    # JAX package (the import probe above walks them too)
-    for name in RECIPES:
+    # the port's recipes and report tools import nothing of JAX, flax,
+    # optax, msgpack or the JAX package (the import probe above walks them
+    # too)
+    for name in sorted(ported):
         tree = ast.parse((REPO / "tpuseg_torch" / "tools" /
                           f"{name}.py").read_text())
         for node in ast.walk(tree):
@@ -287,3 +289,14 @@ def test_recipes_default_to_cuda():
         mod = importlib.import_module(f"tpuseg_torch.tools.{name}")
         with pytest.raises(RuntimeError, match="CUDA"):
             mod.main([])
+
+
+@pytest.mark.parametrize("name", ["native_res_report", "quality_report"])
+def test_report_tools_default_to_cuda(name):
+    """Each report tool raises without CUDA unless given ``--device cpu``,
+    before it generates or runs anything."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is usable here")
+    mod = importlib.import_module(f"tpuseg_torch.tools.{name}")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(["--report", "/nonexistent/REPORT.md"])

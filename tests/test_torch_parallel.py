@@ -203,9 +203,13 @@ def _load(cfg, state):
 @pytest.mark.parametrize("deadline", [None, 0.5])
 def test_the_join_waits_for_every_rank_or_its_deadline(deadline):
     """Without a deadline the join waits as long as the ranks run; with
-    one, it raises when the deadline passes."""
+    one, it raises when the deadline passes, naming the ranks still
+    running.  In that case rank 0 has exited before the deadline starts
+    (a spawn alone can outlast 0.5 s on a loaded machine) and rank 1
+    sleeps far past it (it is killed below)."""
     ctx = torch.multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=time.sleep, args=(s,)) for s in (0.1, 2.0)]
+    sleeps = (0.1, 2.0) if deadline is None else (0.1, 120.0)
+    procs = [ctx.Process(target=time.sleep, args=(s,)) for s in sleeps]
     for p in procs:
         p.start()
     try:
@@ -213,6 +217,7 @@ def test_the_join_waits_for_every_rank_or_its_deadline(deadline):
             mesh_module._join(procs, ["", ""], deadline)
             assert [p.exitcode for p in procs] == [0, 0]
         else:
+            procs[0].join()
             with pytest.raises(TimeoutError, match=r"ranks \[1\] still running"):
                 mesh_module._join(procs, ["", ""], deadline)
     finally:

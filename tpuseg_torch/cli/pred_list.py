@@ -41,6 +41,7 @@ import torch
 
 from tpuseg_torch import resolve_device
 from tpuseg_torch.cli.common import colorize_instances, load_model
+from tpuseg_torch.kernels.ir_chain import ir_chain
 from tpuseg_torch.parallel.mesh import Mesh, run_ranks
 from tpuseg_torch.runtime.predict import Predictor
 from tpuseg_torch.settings import get_config
@@ -180,12 +181,16 @@ def main(argv=None):
             args=(cfg, state, paths, batch_size, output_path, pred_kw,
                   bool(opt.bucketed)))
         n_written = sum(r["images"] for r in last_ranks)
+        rounds = sum(r["rounds"] for r in last_ranks)
+        launches = sum(r["launches"]["ir_chain"] for r in last_ranks)
     else:
         predictor = Predictor(cfg, model, batch_size=opt.batchsize,
                               device=device, **pred_kw)
         t_ready = time.perf_counter()
+        before = ir_chain.launches
         n_written = predict_and_write(predictor, paths, output_path,
                                       bool(opt.bucketed))
+        rounds, launches = predictor.rounds_run, ir_chain.launches - before
     t_done = time.perf_counter()
     print(
         f"timing: setup+weights {t_ready - t_start:.1f}s, inference+artifacts "
@@ -195,6 +200,8 @@ def main(argv=None):
         file=sys.stderr,
     )
     print(f"wrote {n_written} predictions to {output_path}")
+    # kernel launches (0 on the CPU, where the plain version runs)
+    print(f"ir_chain launches {launches} over {rounds} extraction rounds")
     return output_path
 
 
