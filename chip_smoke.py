@@ -100,7 +100,7 @@ split-row entry points, ``sru_scan``) from
     round; SBD / |DiC| / FG dice and img/s beside fixed-256 inference; f32
     on the card vs the CPU's plain path at the A4 bucket, B=2 (counts
     equal, >= 99.9% of id-map pixels);
-15. runs ``python -m tpuseg_torch.cli.pred`` on one eval_hard64 image,
+15. runs the pred CLI's ``main`` in this process on one eval_hard64 image,
     semantic and ``--instances`` (count equal and >= 99.9% of the id map
     and fg mask equal to the CPU's plain path with the CLI's settings:
     f32, batch 1, the config's stopping rule), then ``pred_list --staged
@@ -122,10 +122,12 @@ split-row entry points, ``sru_scan``) from
     them) within ``METRIC_TOL``, the ranks bit-identical; then 1 rank over NCCL, equal
     to the one process bit for bit where the one process repeats itself
     bit for bit (else within that tolerance); then timed: bf16, sampling
-    and dropout on, global B=8 (2 x 4), 10 steps after 2 warm-up, steps/s
+    and dropout on, global B=8 (2 x 4), 4 steps after 1 warm-up, steps/s
     beside item 6's one process, each rank's ``masked_softmax`` launches
     (1 forward, ``BACKWARD_LAUNCHES`` backward a step), and one more step
-    traced: its all-reduces and their ms, read from the trace;
+    traced: its all-reduces and their ms, read from the trace; the same
+    spawn of the 2 ranks runs item 23's rank calls between the fit and
+    the timed steps;
 19. drives the mesh predictor (``Predictor(use_mesh=True, n_devices=2)``:
     two replicas on the card, one after the other, each batch split) over
     item 3's 256 images,
@@ -153,14 +155,14 @@ split-row entry points, ``sru_scan``) from
     of (8, 32, 65536) beside the plain pieces, the library calls and the
     bytes bound;
 23. drives the spatial (H-sharded) path, ``parallel/spatial.py``, over 2
-    gloo ranks on the card against one process: instance inference at
-    full width on two 512 x 512 synthetic scenes in f32 (id maps and counts
-    equal, semantic within rtol 2e-4 / atol 2e-5, no gather of a
-    full-size map, each rank's ``ir_chain`` launches), bf16 ms a batch of
-    the ranks beside one process's; training at 256 x 256, f32, 2 SGD
-    steps under deterministic glimpses (parameters within rtol 5e-3 / atol
-    1.6e-2 of one process), each rank's launches of the split entry points
-    (2 a direction and step, and no whole-row launch);
+    gloo ranks on the card (in item 18's spawn) against one process:
+    instance inference at full width on two 512 x 512 synthetic scenes in
+    f32 (id maps and counts equal, semantic within rtol 2e-4 / atol 2e-5,
+    no gather of a full-size map, each rank's ``ir_chain`` launches), bf16
+    ms a batch of the ranks beside one process's; training at 256 x 256,
+    f32, 2 SGD steps under deterministic glimpses (parameters within rtol
+    5e-3 / atol 1.6e-2 of one process), each rank's launches of the split
+    entry points (2 a direction and step, and no whole-row launch);
 25. runs the capability modules (the JAX package's modules off the main
     paths: the CoordConv family, VGG16, the hourglass, the ASPP modules,
     the DQN and the legacy AtteNet with its ``q_fn``, the transformer
@@ -175,7 +177,7 @@ split-row entry points, ``sru_scan``) from
 26. runs the model-production recipes of ``tpuseg_torch/tools`` at the
     full CVPPP width, cut only in epochs, steps, pools and scenes
     (``RECIPE_CUTS``): ``overfit_check`` (its cost must drop),
-    ``train_synthetic_e2e`` (FG dice must end > 0.1 above random init;
+    ``train_synthetic_e2e`` resumed from the asset (``TPUSEG_RESUME=1``;
     its trained model written by ``write_msgpack`` and read back by
     ``load_model`` gives the same f32 fg, id maps and counts bit for
     bit), ``train_density`` (every leaf outside ``density_head`` of its
@@ -1842,16 +1844,16 @@ def phase_bucketed(cfg, model, dev, stop, root, smi):
 
 
 def phase_pred_cli(cfg, model, root, eval_lst, smi):
-    """python -m tpuseg_torch.cli.pred on one eval_hard64 image (semantic
-    and --instances), held to the CPU's plain path with the CLI's own
-    settings (f32, batch 1, the config's stopping rule: the JAX CLI loads
-    no calibrated stop_params, unlike pred_list); pred_list --staged and
-    --bucketed through the CLI on eval_hard64, f32, held to phase 11's f32
-    artifacts."""
+    """The pred CLI's ``main`` (``python -m tpuseg_torch.cli.pred``) in
+    this process on one eval_hard64 image (semantic and --instances), held
+    to the CPU's plain path with the CLI's own settings (f32, batch 1, the
+    config's stopping rule: the JAX CLI loads no calibrated stop_params,
+    unlike pred_list); pred_list --staged and --bucketed through the CLI
+    on eval_hard64, f32, held to phase 11's f32 artifacts."""
     import torch
     from PIL import Image
 
-    from tpuseg_torch.cli import pred_list
+    from tpuseg_torch.cli import pred, pred_list
     from tpuseg_torch.kernels.ir_chain import ir_chain
     from tpuseg_torch.runtime.predict import Predictor
 
@@ -1866,10 +1868,10 @@ def phase_pred_cli(cfg, model, root, eval_lst, smi):
     img, name = images[0], names[0]
     for mode, flags in (("semantic", []), ("instances", ["--instances"])):
         d = os.path.join(root, "pred_" + mode)
+        torch.cuda.synchronize()
         t = time.perf_counter()
-        subprocess.run([sys.executable, "-m", "tpuseg_torch.cli.pred",
-                        "--image", img, "--model", ckpt, "--output", d]
-                       + flags, cwd=here, check=True, timeout=600)
+        pred.main(["--image", img, "--model", ckpt, "--output", d] + flags)
+        torch.cuda.synchronize()
         out[mode + "_wall_s"] = time.perf_counter() - t
         files = sorted(os.listdir(d))
         n_files = 5 if flags else 1
@@ -1894,8 +1896,8 @@ def phase_pred_cli(cfg, model, root, eval_lst, smi):
                 "idmap_agreement_pred_list_f32": float(np.mean(
                     ins == f32_ins))})
     log(f"  pred CLI on {name}: semantic {out['semantic_wall_s']:.1f} s, "
-        f"--instances {out['instances_wall_s']:.1f} s (a process each: "
-        f"start-up, weights, f32 forward, PNG writes); card vs the CPU's "
+        f"--instances {out['instances_wall_s']:.1f} s (in this process: "
+        f"weights, f32 forward, PNG writes); card vs the CPU's "
         f"plain path: count {count} / {ref['n_objects']}, id-map agreement "
         f"{agree:.6f}, fg {fg_agree:.6f}; beside pred_list --f32 (calibrated"
         f" stopping rule): count {want[name][0]}, id-map agreement "
@@ -2184,9 +2186,13 @@ def dp_fit_args(det, sd, train_b, val_b, run_dir):
     return (det, sd, train_b, val_b, run_dir, 1, torch.float32)
 
 
-def phase_dp_fit(cfg, model, dev, train, smi):
+def phase_dp_fit(cfg, model, dev, train, smi, more=()):
     """Data-parallel fit over 2 gloo ranks on the card against one process
-    (f32), 1 NCCL rank, then the timed bf16 data-parallel steps."""
+    (f32), 1 NCCL rank, then the timed bf16 data-parallel steps.  The
+    ranks run ``more`` (``(task, args)`` pairs) in the same spawn, after
+    the fit and before the timed steps (run after them and their traced
+    step, phase 24's bf16 batches took 2.5x longer); returns the readings
+    and each rank's results of ``more``."""
     import tempfile
 
     import torch
@@ -2210,20 +2216,22 @@ def phase_dp_fit(cfg, model, dev, train, smi):
     out["one_process_s"] = (time.perf_counter() - t) / 2
     repeats = _states_equal(one["model"], again["model"])
     # the timed run's batches: bf16, sampling + dropout (phase 7's
-    # configuration); both runs in one spawn of the 2 ranks
+    # configuration); the fit, phase 24's calls and these in one spawn
     # (the last batch's step traced, untimed: its all-reduces)
-    B, n_warm, n_steps = 8, 2, 10
+    B, n_warm, n_steps = 8, 1, 4
     rng = np.random.default_rng(13)
     steps_b = [make_batch(rng, B, 256, 256, cfg.data.max_n_objects, hard=True)
                for _ in range(n_warm + n_steps + 1)]
     t = time.perf_counter()
     runs = run_ranks(tasks.in_turn, 2, ([
         (tasks.fit_run, args("two")),
+        *more,
         (tasks.train_steps, (cfg, sd, steps_b, torch.bfloat16, n_warm,
                              os.path.join(root, "trace"))),
-    ],), device="cuda", backend="gloo", timeout=600)
+    ],), device="cuda", backend="gloo", timeout=900)
     out["two_ranks_wall_s"] = time.perf_counter() - t
-    two, timed = [r[0] for r in runs], [r[1] for r in runs]
+    two, timed = [r[0] for r in runs], [r[-1] for r in runs]
+    more_results = [r[1:-1] for r in runs]
     names = [n for n, _ in model.named_parameters()]
     read = dp_readings(two[0]["model"], one["model"], sd, names,
                        os.path.join(root, "two"), os.path.join(root, "one"))
@@ -2260,8 +2268,8 @@ def phase_dp_fit(cfg, model, dev, train, smi):
         f"one process rerun: bit-equal {repeats} (max |diff| "
         f"{rerun_worst:.3e}); 1 NCCL rank vs one process: bit-equal "
         f"{nccl_equal}, max |diff| {nccl_worst:.3e}; spawn + 2 ranks (this "
-        f"fit and the timed steps below) {out['two_ranks_wall_s']:.1f} s "
-        f"[{smi}]")
+        f"fit, phase 24's {len(more)} calls and the timed steps below) "
+        f"{out['two_ranks_wall_s']:.1f} s [{smi}]")
     if bad or not identical or [r["step"] for r in two] != [2, 2]:
         raise AssertionError(
             f"dp-fit f32: steps {[r['step'] for r in two]}, ranks identical "
@@ -2314,7 +2322,7 @@ def phase_dp_fit(cfg, model, dev, train, smi):
     import shutil
 
     shutil.rmtree(root, ignore_errors=True)
-    return out
+    return out, more_results
 
 
 def phase_mesh_predict(cfg, model, dev, stop, batches, smi):
@@ -2691,20 +2699,18 @@ SPATIAL_SIDE = 512       # spatial inference: 2 ranks at 512 x 512
 SPATIAL_TRAIN_SIDE = 256
 
 
-def phase_spatial(cfg, model, dev, stop, smi):
-    """The spatial (H-sharded) path of ``parallel/spatial.py`` over 2 gloo
-    ranks on the card against one process: inference at full width on two
-    512 x 512 synthetic scenes, f32 (id maps and counts equal, semantic
-    within rtol 2e-4 / atol 2e-5), each rank's ir_chain launches, then bf16
-    ms a batch beside one process's; training at 256 x 256, f32, 2 SGD
-    steps under deterministic glimpses (parameters within rtol 5e-3 / atol
-    1.6e-2), each rank's launches of masked_softmax's split entry points."""
+def spatial_calls(cfg, model, stop):
+    """Phase 24's rank calls: f32 and bf16 spatial inference on two
+    ``SPATIAL_SIDE``² hard scenes, 2 f32 SGD steps of spatial training.
+    They run in phase 19's spawn of the 2 ranks, after its fit (a
+    spawn costs the ranks' start-up and first-call warm-up, tens of
+    seconds); phase 24 runs them again in one process."""
     import dataclasses
 
     import torch
 
     from tpuseg_torch.data.synthetic import make_batch, make_scene
-    from tpuseg_torch.parallel import make_mesh, run_ranks, tasks
+    from tpuseg_torch.parallel import tasks
 
     sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     rng = np.random.default_rng(41)
@@ -2718,14 +2724,27 @@ def phase_spatial(cfg, model, dev, stop, smi):
     batches = [make_batch(rng, 2, SPATIAL_TRAIN_SIDE, SPATIAL_TRAIN_SIDE,
                           cfg.data.max_n_objects, hard=True)] * 2
     f32, bf16 = torch.float32, torch.bfloat16
-    calls = [(tasks.spatial_infer, (cfg, sd, [imgs], None, stop, f32, True)),
-             (tasks.spatial_infer, (cfg, sd, [imgs], None, stop, bf16, False,
-                                    3)),
-             (tasks.spatial_train, (tcfg, sd, batches, f32, True))]
-    t0 = time.perf_counter()
-    ranks = run_ranks(tasks.in_turn, 2, args=(calls,), device=dev.type,
-                      timeout=900)
-    rank_s = time.perf_counter() - t0
+    return [(tasks.spatial_infer, (cfg, sd, [imgs], None, stop, f32, True)),
+            (tasks.spatial_infer, (cfg, sd, [imgs], None, stop, bf16, False,
+                                   3)),
+            (tasks.spatial_train, (tcfg, sd, batches, f32, True))]
+
+
+def phase_spatial(dev, smi, calls, ranks):
+    """The spatial (H-sharded) path of ``parallel/spatial.py`` over 2 gloo
+    ranks on the card against one process: inference at full width on two
+    512 x 512 synthetic scenes, f32 (id maps and counts equal, semantic
+    within rtol 2e-4 / atol 2e-5), each rank's ir_chain launches, then bf16
+    ms a batch beside one process's; training at 256 x 256, f32, 2 SGD
+    steps under deterministic glimpses (parameters within rtol 5e-3 / atol
+    1.6e-2), each rank's launches of masked_softmax's split entry points.
+    ``ranks``: each rank's results of ``calls`` (``spatial_calls``), run
+    in phase 19's spawn."""
+    import torch
+
+    from tpuseg_torch.parallel import make_mesh
+
+    batches = calls[2][1][2]  # spatial_train's (cfg, state, batches, ...)
     one = make_mesh(1, dev)
     t0 = time.perf_counter()
     ref = [task(one, *args) for task, args in calls]
@@ -2766,7 +2785,7 @@ def phase_spatial(cfg, model, dev, stop, smi):
         "train_costs_one_process": [m["cost"] for m in ref[2]["metrics"]],
         "split_launches_per_rank": [{"forward": f, "backward": b}
                                     for f, b, _ in split],
-        "rank_seconds": rank_s, "one_process_seconds": one_s,
+        "one_process_seconds": one_s,
     }
     log(f"  spatial inference, 2 ranks on one card vs one process, f32 "
         f"{SPATIAL_SIDE}x{SPATIAL_SIDE} B=2 full width: id maps agree on "
@@ -2782,8 +2801,8 @@ def phase_spatial(cfg, model, dev, stop, smi):
         f"steps: parameters' largest excess over rtol 5e-3 {worst:.3e} (atol "
         f"1.6e-2), costs {out['train_costs']} vs {out['train_costs_one_process']}"
         f"; masked_softmax split launches a rank (forward, backward) "
-        f"{[(f, b) for f, b, _ in split]}; ranks {rank_s:.1f} s, one process "
-        f"{one_s:.1f} s [{smi}]")
+        f"{[(f, b) for f, b, _ in split]}; the ranks ran in phase 19's "
+        f"spawn; one process {one_s:.1f} s [{smi}]")
     if same_id != 1.0 or any(c != want["counts"].tolist() for c in counts):
         raise AssertionError(f"spatial inference differs from one process: {out}")
     if not sem_ok:
@@ -3139,9 +3158,11 @@ def phase_capability(dev, smi, side=CAP_SIDE):
 # phase 26's cuts of the recipes' epochs, steps, pools and scene counts
 # (widths, resolutions, batch sizes and learning rates are the recipes')
 RECIPE_CUTS = {
-    # the instance decoder starts emitting masks after 80-120 epochs
-    # (PERF.md §6): 160 keeps the recipe's FG-dice gate meaningful
-    "train_synthetic_e2e": {"epochs": 160, "eval_every": 40},
+    # resumed from the asset (TPUSEG_RESUME=1, the tool's own mode, which
+    # has no FG-dice gate): from random init the instance decoder emits no
+    # mask for 80-120 epochs (PERF.md §6), 300 s of the script's 1200;
+    # overfit_check keeps the phase's learning gate
+    "train_synthetic_e2e": {"epochs": 12, "eval_every": 6},
     "train_density": {"steps": 100, "eval_every": 50, "pool": 128,
                       "n_val": 32},
     "train_hard_r3": {"epochs": 2, "n_train": 16, "n_val": 16,
@@ -3164,15 +3185,16 @@ def phase_recipes(dev, smi, work, cfg=None, asset=None, cuts=RECIPE_CUTS,
                   res=(256, 128), calib_n=32):
     """The model-production recipes of ``tpuseg_torch/tools`` at the JAX
     tools' width (``cfg``: ``cvppp_config()``), each cut only in epochs,
-    steps, pools and scenes (``cuts``, printed).  Gates: the tools' own
-    asserts (overfit, e2e FG dice), a written and re-loaded checkpoint
-    giving the in-memory model's f32 id maps and counts bit for bit,
-    ``train_density`` leaving every leaf but ``density_head`` bitwise,
-    ``train_hard_r3 --freeze_subtrees count_head,density_head
-    --freeze_bn`` leaving those subtrees and every batch statistic bitwise,
-    and ``assets/`` unchanged.  Printed, no gate: the calibration sweep at
-    the JAX defaults, the installed rule's row beside its record, the
-    count diagnosis, each kernel's launches over the phase."""
+    steps, pools and scenes (``cuts``, printed), the e2e resumed from
+    ``asset``.  Gates: the tools' own asserts (overfit), a written and
+    re-loaded checkpoint giving the in-memory model's f32 id maps and
+    counts bit for bit, ``train_density`` leaving every leaf but
+    ``density_head`` bitwise, ``train_hard_r3 --freeze_subtrees
+    count_head,density_head --freeze_bn`` leaving those subtrees and every
+    batch statistic bitwise, and ``assets/`` unchanged.  Printed, no gate:
+    the calibration sweep at the JAX defaults, the installed rule's row
+    beside its record, the count diagnosis, each kernel's launches over
+    the phase."""
     import torch
 
     from tpuseg_torch.cli.common import load_model
@@ -3221,11 +3243,23 @@ def phase_recipes(dev, smi, work, cfg=None, asset=None, cuts=RECIPE_CUTS,
     out["overfit"] = {"first5": float(np.mean(costs[:5])),
                       "last5": float(np.mean(costs[-5:]))}
 
-    # -- e2e learning evidence, cut in epochs; the tool's FG-dice gate
+    # -- the e2e recipe resumed from the asset, cut in epochs
     ecfg = train_synthetic_e2e.recipe_config(lo, cfg=cfg)
-    e2e = timed("train_synthetic_e2e", lambda: train_synthetic_e2e.run(
-        ecfg, root=os.path.join(work, "e2e"), device=dev,
-        **cuts["train_synthetic_e2e"]))
+
+    def e2e_resumed():
+        was = os.environ.get("TPUSEG_RESUME")
+        os.environ["TPUSEG_RESUME"] = "1"
+        try:
+            return train_synthetic_e2e.run(
+                ecfg, root=os.path.join(work, "e2e"), device=dev,
+                resume_from=asset, **cuts["train_synthetic_e2e"])
+        finally:
+            if was is None:
+                del os.environ["TPUSEG_RESUME"]
+            else:
+                os.environ["TPUSEG_RESUME"] = was
+
+    e2e = timed("train_synthetic_e2e", e2e_resumed)
     out["e2e"] = {k: e2e[k] for k in ("sbd0", "fg0", "sbd1", "fg1",
                                        "best_sbd", "best_epoch", "steps",
                                        "steps_per_s")}
@@ -3765,7 +3799,9 @@ def main() -> int:
         # -- phase 19: data-parallel fit over 2 ranks on the card vs one
         # process, 1 NCCL rank, the timed data-parallel steps
         t0 = time.perf_counter()
-        dp_fit = phase_dp_fit(cfg, model, dev, train, smi)
+        spatial = spatial_calls(cfg, model, stop)
+        dp_fit, spatial_ranks = phase_dp_fit(cfg, model, dev, train, smi,
+                                             more=spatial)
         log(f"phase dp-fit: {time.perf_counter() - t0:.1f} s")
 
         # -- phase 20: the mesh predictor on phase 4's images
@@ -3791,7 +3827,7 @@ def main() -> int:
 
         # -- phase 24: spatial inference and training over 2 ranks
         t0 = time.perf_counter()
-        spatial_run = phase_spatial(cfg, model, dev, stop, smi)
+        spatial_run = phase_spatial(dev, smi, spatial, spatial_ranks)
         log(f"phase spatial: {time.perf_counter() - t0:.1f} s")
 
         # -- phase 25: the capability modules, card vs CPU
@@ -3954,7 +3990,7 @@ def main() -> int:
             "fit_with_dumps": debug["fit_launches"]["forward"]
             + debug["fit_launches"]["backward"]},
         # phases 19 and 21, each rank's forward + backward launches: the
-        # timed data-parallel steps (2 gloo ranks, 10 steps) and
+        # timed data-parallel steps (2 gloo ranks, 4 steps) and
         # train --ndevices 2 (2 epochs + validation)
         "launches_dp_fit": [r["masked_softmax_forward"]
                             + r["masked_softmax_backward"]
