@@ -199,6 +199,15 @@ split-row entry points, ``sru_scan``) from
     <= f32 + 0.1; each ``pred_list`` process's ``ir_chain`` launches (20 a
     round); the root ``REPORT.md`` and ``assets/`` must hash the same
     after.
+28. runs the measurement tools of ``tpuseg_torch/tools`` in this process:
+    ``trace_summary`` of item 21's trace (device busy time, idle share,
+    buckets, the longest gaps and their host events; its ``ir_chain``
+    launches equal to that batch's counter), ``roofline`` at B=32 bf16 (the
+    infer stage's counted ``ir_chain`` operations = its launches' rounds x
+    a round's five calls' formula; every share <= ``SHARE_MAX`` %),
+    ``profile_stages --ks 1,32``, ``profile_components``,
+    ``profile_decode_scaling`` at B 32 and 128, and ``warmup`` (every
+    library reused: phase 1 built them).
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises: the
@@ -208,21 +217,19 @@ script exits non-zero and prints no result.  Exits 2 when CUDA is absent.
 import copy
 import json
 import os
-import subprocess
 import sys
 import time
 
 import numpy as np
 
-# H100 SXM, dense (NVIDIA's data sheet): everything but matrix products at
-# the float32 rate of the CUDA cores; the products at the rate of the route
-# the ir_chain kernel takes: bf16 on the tensor cores, float32 as 3xTF32 on
-# the tensor cores (three TF32 products for each float32-accurate one, at
-# the TF32 dense rate of 494.7 TFLOP/s)
-PEAK_F32 = 67e12
-PEAK_3XTF32 = 494.7e12 / 3
-PEAK_MATMUL = {"float32": PEAK_3XTF32, "bfloat16": 989e12}
-PEAK_BYTES = 3.35e12
+# the bounds of a kernel call at the card's data-sheet peaks: the port's
+# count module holds them
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from tpuseg_torch.utils.roofline import (  # noqa: E402
+    bytes_ms, chain_bound, chain_ops, softmax_bound_ms,
+)
+from tpuseg_torch.utils.roofline import card_line as smi_line  # noqa: E402
+
 N_DECODE = 128  # B * G on the main path
 # (level, H, W, C) of the main path's ir_chain calls at 256^2 with the 192
 # window: three full-canvas levels, then the two windowed ones
@@ -239,15 +246,6 @@ def log(*a):
     print(*a, flush=True)
 
 
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     import torch
 
@@ -261,30 +259,6 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def chain_bound(n, h, w, c, dtype_name, with_skip, cuda_cores=False):
-    """(bytes ms, operations ms): the least time for one chain call is the
-    larger — inputs read once and the output written once at the memory
-    rate, operations at the card's peak for their type.  Per pixel and
-    block: the two pointwise products (8 C^2 FLOPs) at the matrix rate of
-    the kernel's route (``PEAK_MATMUL``); the depthwise taps (36 C), the two
-    bias + relu6 passes (12 C) and the residual + b3 (2 C), accumulated in
-    float32, at the CUDA cores' float32 rate.  The two kinds run on
-    different units, so the larger time bounds.  ``cuda_cores``: the
-    float32 products on the CUDA cores too, where both kinds add (the
-    yardstick of a kernel that keeps its products off the tensor cores)."""
-    es = 4 if dtype_name == "float32" else 2
-    act = n * h * w * c * es
-    weights = 4 * (2 * c * 2 * c * es + (2 * c * 2 + 2 * c * 9 + c) * 4)
-    nbytes = act * (3 if with_skip else 2) + weights
-    px = n * h * w * 4
-    other_s = px * 50 * c / PEAK_F32
-    if cuda_cores:
-        ops_s = px * 8 * c * c / PEAK_F32 + other_s
-    else:
-        ops_s = max(px * 8 * c * c / PEAK_MATMUL[dtype_name], other_s)
-    return 1e3 * nbytes / PEAK_BYTES, 1e3 * ops_s
 
 
 def phase_kernel_vs_plain(model, dev):
@@ -401,17 +375,6 @@ def phase_kernel_vs_plain(model, dev):
         f"tolerance, max|err|/max|y| {max(ragged):.3e}")
     torch.cuda.empty_cache()
     return rows, max_abs_f32, max_rel_bf16
-
-
-def softmax_bound_ms(b, n, hw, active=None):
-    """Bytes bounds (forward, backward) in ms: each input read once, each
-    output written once, at the card's memory rate.  Forward reads e and
-    the float32 mask and writes p; backward reads g, p where g is nonzero
-    (``active`` rows of the B*N, all of them when None) and writes de."""
-    active = b * n if active is None else active
-    fwd = b * hw * 4 + b * n * hw * 8
-    bwd = b * n * hw * 4 + active * hw * 4 + b * hw * 4
-    return 1e3 * fwd / PEAK_BYTES, 1e3 * bwd / PEAK_BYTES
 
 
 SOFTMAX_K = 2  # instances per sample that the training loss differentiates
@@ -871,12 +834,6 @@ SRU_LM = dict(layers=6, width=910, batch=32, length=35, highway_bias=-3.0)
 SRU_LONG = 1024  # one long sequence, where the scan outlasts a launch
 SRU_FWD_TOL = dict(rtol=2e-5, atol=2e-5)  # tests/test_sru.py
 SRU_BWD_TOL = dict(rtol=3e-4, atol=3e-5)
-
-
-def bytes_ms(*tensors):
-    """The bytes bound in ms: each tensor moved once at the memory rate."""
-    moved = sum(4 * t.numel() for t in tensors if t is not None)
-    return 1e3 * moved / PEAK_BYTES
 
 
 def host_ms(fn, calls):
@@ -2540,7 +2497,9 @@ def phase_dp_cli(work, eval_lst, smi):
 
 
 def phase_trace(cfg, model, dev, stop, batch, root, smi):
-    """One phase-4 batch inside ``trace_context`` under a ``StepTimer``."""
+    """One phase-4 batch inside ``trace_context`` under a ``StepTimer``;
+    the ``ir_chain`` launches of the traced batch counted."""
+    from tpuseg_torch.kernels.ir_chain import ir_chain
     from tpuseg_torch.runtime.predict import Predictor
     from tpuseg_torch.utils.tracing import (
         TRACE_FILE, StepTimer, annotate, trace_context,
@@ -2550,9 +2509,11 @@ def phase_trace(cfg, model, dev, stop, batch, root, smi):
                      stop_params=stop)
     pred.predict_batch_packed(batch)  # warm-up
     timer = StepTimer()
+    before = ir_chain.launches
     with trace_context(root):
         with annotate("predict_batch"):
             timer.time("batch", pred.predict_batch_packed, batch)
+    launches = ir_chain.launches - before
     path = os.path.join(root, TRACE_FILE)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
@@ -2562,7 +2523,8 @@ def phase_trace(cfg, model, dev, stop, batch, root, smi):
     out = {"trace_bytes": os.path.getsize(path), "events": len(events),
            "kernel_events": len(kernels), "annotated": named,
            "timer_count": rec.get("count", 0),
-           "batch_ms": 1e3 * rec.get("mean_s", float("nan"))}
+           "batch_ms": 1e3 * rec.get("mean_s", float("nan")),
+           "ir_chain_launches": launches, "trace_dir": root}
     log(f"  trace: {path} ({out['trace_bytes']} bytes, {len(events)} events, "
         f"{len(kernels)} device kernels, annotation {named}); StepTimer "
         f"{out['timer_count']} record, {out['batch_ms']:.1f} ms for the batch "
@@ -3520,6 +3482,145 @@ def phase_reports(cfg, model, dev, smi, work, cli_eval):
     return out
 
 
+SHARE_MAX = 105.0  # a share over this reads a count or a time wrong
+
+
+def _tool_output(main, argv) -> str:
+    """Run a tool's ``main(argv)`` in this process; what it printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    if rc != 0:
+        raise AssertionError(f"{main.__module__} {argv} exited {rc}:\n"
+                             f"{buf.getvalue()[-2000:]}")
+    return buf.getvalue()
+
+
+def _last_json(text: str):
+    """The JSON object a tool printed last (one line, or indented from a
+    line that starts with its brace)."""
+    return json.loads(text[text.rfind("\n{") + 1:])
+
+
+def phase_measure(trace, smi):
+    """The measurement tools of ``tpuseg_torch/tools`` on the card:
+    ``trace_summary`` of phase 22's trace (busy time, idle share, buckets,
+    the gaps), ``roofline`` at B=32 bf16, ``profile_stages --ks 1,32``,
+    ``profile_components``, ``profile_decode_scaling`` at B 32 and 128 and
+    ``warmup``.  Raises when the trace has no device time, its idle share
+    lies outside [0, 1), its ``ir_chain`` launches differ from phase 22's
+    counter, the counted ``ir_chain`` operations are not the launches'
+    rounds times a round's formula, a share reads over ``SHARE_MAX`` %, or
+    ``warmup`` built anything (phase 1 built every library)."""
+    from tpuseg_torch.tools import (
+        profile_components, profile_decode_scaling, profile_stages,
+        roofline, trace_summary, warmup,
+    )
+    from tpuseg_torch.tools.profile_stages import INFER_BUCKETS
+
+    out = {}
+    t0 = time.perf_counter()
+    argv = [trace["trace_dir"], "--json", "--window", "predict_batch",
+            "--gaps", "5", "--top", "12"]
+    for b in INFER_BUCKETS:
+        argv += ["--bucket", b]
+    tr = _last_json(_tool_output(trace_summary.main, argv))
+    chain = sum(n for name, n in tr["launches"].items() if "ir_block" in name)
+    log(f"  trace_summary of phase 22's batch: window {tr['window_ms']:.2f} "
+        f"ms, device busy {tr['busy_ms']:.2f} ms (kernel sum "
+        f"{tr['device_ms']:.2f}), idle share {tr['idle_share']:.4f}; "
+        f"buckets (ms) " + ", ".join(f"{k} {v:.2f}"
+                                     for k, v in tr["buckets"].items())
+        + f"; ir_chain launches traced {chain}, counted {trace['ir_chain_launches']}"
+        f"; {tr['ops']} device events [{smi}]")
+    log(f"    idle over {tr['n_gaps']} gaps; idle ms by the host event at a "
+        f"gap's start: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in list(tr["idle_by_host"].items())[:8]))
+    for g in tr["gaps"]:
+        log(f"    gap {g['ms']:.3f} ms at +{g['start_us'] / 1e3:.2f} ms, "
+            f"host: {g['host']}")
+    log("    top: " + "; ".join(f"{t['name'][:60]} x{t['count']} "
+                                f"{t['ms']:.2f} ms" for t in tr["top"][:8]))
+    if not tr["busy_ms"] > 0:
+        raise AssertionError(f"trace_summary: no device time: {tr}")
+    if not 0.0 <= tr["idle_share"] < 1.0:
+        raise AssertionError(f"idle share {tr['idle_share']} not in [0, 1)")
+    if chain != trace["ir_chain_launches"]:
+        raise AssertionError(
+            f"the trace holds {chain} ir_chain launches, phase 22 counted "
+            f"{trace['ir_chain_launches']}")
+    out["trace"] = {k: tr[k] for k in ("window_ms", "busy_ms", "device_ms",
+                                       "idle_share", "buckets", "gaps",
+                                       "n_gaps", "idle_by_host", "ops")}
+    out["trace"]["ir_chain_launches"] = chain
+    out["trace_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rows_path = os.path.join(os.path.dirname(trace["trace_dir"]),
+                             "roofline.json")
+    text = _tool_output(roofline.main, ["--batch", "32", "--iters", "3",
+                                        "--out", rows_path])
+    with open(rows_path) as f:
+        rows = json.load(f)
+    for line in text.splitlines():
+        if line.startswith("card:") or line.startswith("|"):
+            log("    " + line)
+    infer = rows[-1]
+    calls = infer["kernels"]["ir_chain"]["calls"]
+    launches = infer["launches"]["ir_chain"]
+    per_round = sum(chain_ops(N_DECODE, h, w, c) for _, h, w, c in MAIN_SHAPES)
+    want = launches // 20 * per_round
+    log(f"  roofline: infer {infer['rounds']} rounds, ir_chain {calls} calls "
+        f"/ {launches} launches, counted {infer['kernels']['ir_chain']['flops']}"
+        f" FLOP against {want} (launches / 20 x a round's five calls)")
+    if (launches != 4 * calls or launches != 20 * infer["rounds"]
+            or infer["kernels"]["ir_chain"]["flops"] != want):
+        raise AssertionError(f"roofline's ir_chain count: {infer}")
+    for r in rows:
+        for key in ("pct_mxu_peak", "pct_hbm_peak", "pct_roofline"):
+            if not (r[key] is not None and 0 <= r[key] <= SHARE_MAX):
+                raise AssertionError(f"roofline {r['stage']}: {key} "
+                                     f"{r[key]}")
+    out["roofline"] = [{k: r[k] for k in (
+        "stage", "gflop", "gb", "ai_flop_per_byte", "ms", "tflops",
+        "pct_mxu_peak", "hbm_gbs", "pct_hbm_peak", "bound_ms", "bound_by",
+        "pct_roofline")} for r in rows]
+    out["roofline_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    st = _last_json(_tool_output(profile_stages.main,
+                                 ["--ks", "1,32", "--iters", "2"]))
+    log("  profile_stages (ms a batch): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in st["stages_ms_per_batch"].items())
+        + f"; rounds {st['rounds']}")
+    comp = _last_json(_tool_output(profile_components.main, ["--iters", "2"]))
+    log("  profile_components (ms a batch): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in comp["ms_per_batch"].items()))
+    dec = _last_json(_tool_output(profile_decode_scaling.main,
+                                  ["--batches", "32,128", "--iters", "2"]))
+    log("  profile_decode_scaling (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in dec.items() if k != "device"))
+    out["stages"] = st["stages_ms_per_batch"]
+    out["components"] = comp["ms_per_batch"]
+    out["decode_scaling"] = {k: v for k, v in dec.items() if k != "device"}
+    out["profile_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    wu = _last_json(_tool_output(warmup.main, []))
+    built = [k for k, v in wu["libraries"].items() if not v["reused"]]
+    log(f"  warmup: libraries {sorted(wu['libraries'])}, built anew "
+        f"{built}; batches (s) {wu['batch_seconds']}")
+    if built or set(wu["libraries"]) != {"ir_chain", "masked_softmax",
+                                         "sru_scan", "native"}:
+        raise AssertionError(f"warmup: {wu}")
+    out["warmup"] = wu["batch_seconds"]
+    out["warmup_s"] = time.perf_counter() - t0
+    return out
+
+
 def make_images(n, seed):
     from tpuseg_torch.data.synthetic import label_map, make_scene
 
@@ -3845,6 +3946,11 @@ def main() -> int:
         reports = phase_reports(cfg, model, dev, smi,
                                 os.path.join(work, "reports"), cli_eval)
         log(f"phase reports: {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 28: the measurement tools (tpuseg_torch/tools)
+        t0 = time.perf_counter()
+        measure = phase_measure(trace, smi)
+        log(f"phase measure: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3869,6 +3975,7 @@ def main() -> int:
         "recipes": {k: v for k, v in recipes.items()
                     if k != "calibration"},
         "reports": {k: v for k, v in reports.items() if k != "chain_rows"},
+        "measure": measure,
         "seconds": time.perf_counter() - t_all,
     }
     log("summary " + json.dumps(summary))

@@ -71,6 +71,12 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     # and the report tools'
     for name in ("freeze_eval", "native_res_report", "quality_report"):
         assert f"tpuseg_torch.tools.{name}" in res["imported"], name
+    # and the measurement tools' with the count
+    for name in ("tools.trace_summary", "tools.roofline",
+                 "tools.profile_stages", "tools.profile_components",
+                 "tools.profile_decode_scaling", "tools.warmup",
+                 "tools.stages", "utils.roofline"):
+        assert f"tpuseg_torch.{name}" in res["imported"], name
     # and the capability modules'
     for name in ("nn.native", "nn.aspp", "nn.transformer", "nn.embedding",
                  "nn.conv_gru", "nn.hourglass", "nn.vgg16", "nn.dqn",
@@ -233,10 +239,14 @@ def test_a_rank_that_imports_jax_fails_even_beside_tensorflow(task):
 
 # The root tools/ scripts that are not ported, by why.
 ROOT_TOOLS_MEASUREMENT = {
-    "profile_stages", "profile_components", "profile_decode_scaling",
-    "profile_train", "roofline", "trace_summary", "warmup", "bench_ab",
-    "bench_multi", "bench_scaling", "bench_ir_chain", "tpu_kernel_check",
-    "recache_baseline",
+    # they write the JAX benchmark's own files (BENCH_EXTRA.json,
+    # SCALING.md, BENCH_BASELINE.json): the port's benchmark replaces them
+    "bench_multi": "the port's benchmark",
+    "bench_scaling": "the port's benchmark",
+    "recache_baseline": "the port's benchmark",
+    # checks the Pallas kernels on the TPU: chip_smoke.py's kernel phases
+    # hold every Hopper kernel to its plain version
+    "tpu_kernel_check": "chip_smoke.py's kernel phases",
 }
 ROOT_TOOLS_NEED_REFERENCE = {
     "parity_run", "parity_grads", "parity_terms",
@@ -249,36 +259,58 @@ RECIPES = {
 # the tools that make and judge the evidence: the frozen asset's writer and
 # the two reports
 REPORT_TOOLS = {"freeze_eval", "native_res_report", "quality_report"}
+# the measurement tools: root tool -> its tpuseg_torch/tools counterpart
+# (bench_ab's config overrides are ab_infer's --set)
+MEASUREMENT_TOOLS = {
+    "trace_summary": "trace_summary", "roofline": "roofline",
+    "profile_stages": "profile_stages",
+    "profile_components": "profile_components",
+    "profile_decode_scaling": "profile_decode_scaling",
+    "warmup": "warmup", "profile_train": "profile_train",
+    "bench_ir_chain": "bench_ir_chain", "bench_ab": "ab_infer",
+}
+# the new measurement tools that run a model: each takes --device
+DEVICE_TOOLS = ("roofline", "profile_stages", "profile_components",
+                "profile_decode_scaling", "warmup")
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module or ""
 
 
 def test_every_root_tool_is_ported_or_listed():
-    """Each model-production recipe and report tool of the root ``tools/``
-    has its ``tpuseg_torch/tools/`` counterpart, and every other root script
-    is on one of the named lists, so a new root tool cannot go unnoticed."""
+    """Each model-production recipe, report tool and measurement tool of
+    the root ``tools/`` has its ``tpuseg_torch/tools/`` counterpart, and
+    every other root script is on one of the named lists, so a new root
+    tool cannot go unnoticed."""
     root = {p.stem for p in (REPO / "tools").glob("*.py")}
     port = {p.stem for p in (REPO / "tpuseg_torch" / "tools").glob("*.py")}
     ported = RECIPES | REPORT_TOOLS
     assert ported <= root and ported <= port, ported - port
-    lists = (ROOT_TOOLS_MEASUREMENT, ROOT_TOOLS_NEED_REFERENCE, RECIPES,
-             REPORT_TOOLS)
+    assert set(MEASUREMENT_TOOLS) <= root
+    assert set(MEASUREMENT_TOOLS.values()) <= port
+    lists = (set(ROOT_TOOLS_MEASUREMENT), ROOT_TOOLS_NEED_REFERENCE, RECIPES,
+             REPORT_TOOLS, set(MEASUREMENT_TOOLS))
     assert sum(len(s) for s in lists) == len(set().union(*lists))
     assert sorted(root - set().union(*lists)) == []
     # a listed script that left the repo leaves its list too
     assert sorted(set().union(*lists) - root) == []
-    # the port's recipes and report tools import nothing of JAX, flax,
-    # optax, msgpack or the JAX package (the import probe above walks them
-    # too)
-    for name in sorted(ported):
-        tree = ast.parse((REPO / "tpuseg_torch" / "tools" /
-                          f"{name}.py").read_text())
-        for node in ast.walk(tree):
-            mods = ([a.name for a in node.names]
-                    if isinstance(node, ast.Import) else
-                    [node.module or ""] if isinstance(node, ast.ImportFrom)
-                    else [])
-            for m in mods:
-                assert m.split(".")[0] not in (
-                    "jax", "flax", "optax", "msgpack", "tpuseg"), (name, m)
+    # the port's counterparts import nothing of JAX, flax, optax, msgpack,
+    # the JAX package or its bench (the import probe above walks them too)
+    names = sorted(ported | set(MEASUREMENT_TOOLS.values()) | {"stages"})
+    for name in names:
+        for m in _imported_modules(REPO / "tpuseg_torch" / "tools" /
+                                   f"{name}.py"):
+            assert m.split(".")[0] not in (
+                "jax", "flax", "optax", "msgpack", "tpuseg", "bench"), (
+                    name, m)
+    for m in _imported_modules(REPO / "tpuseg_torch" / "utils" /
+                               "roofline.py"):
+        assert m.split(".")[0] not in ("jax", "flax", "tpuseg", "bench"), m
 
 
 def test_recipes_default_to_cuda():
@@ -300,3 +332,15 @@ def test_report_tools_default_to_cuda(name):
     mod = importlib.import_module(f"tpuseg_torch.tools.{name}")
     with pytest.raises(RuntimeError, match="CUDA"):
         mod.main(["--report", "/nonexistent/REPORT.md"])
+
+
+@pytest.mark.parametrize("name", DEVICE_TOOLS)
+def test_measurement_tools_default_to_cuda(name):
+    """Each measurement tool that runs the model raises without CUDA unless
+    given ``--device cpu``, before it loads or builds anything
+    (``trace_summary`` reads a trace file and runs nothing)."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is usable here")
+    mod = importlib.import_module(f"tpuseg_torch.tools.{name}")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(["--model", "/nonexistent.msgpack"])

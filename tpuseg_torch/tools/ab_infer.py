@@ -1,7 +1,7 @@
 """Time the batched-inference main path of one checkout of the port.
 
     python tpuseg_torch/tools/ab_infer.py <tree root> [n_images] [repeats] \
-        [n_devices] [processes]
+        [n_devices] [processes] [--set group.field=value ...]
 
 Imports ``tpuseg_torch`` from ``<tree root>`` (which also holds
 ``assets/synthetic_ckpt.msgpack``), builds its ``ir_chain`` kernel, and
@@ -12,18 +12,52 @@ img/s of each pass.  ``n_devices`` > 1 times the mesh predictor
 ``processes`` it times that many rank processes instead, as ``pred_list
 --ndevices`` runs them (``parallel/tasks.py::timed_inference``: each rank
 on its whole batches, every pass started at a barrier; img/s = the images
-over the slowest rank's pass).  To compare two commits on one card, unpack the other
+over the slowest rank's pass).  ``--set group.field=value`` (any number of
+pairs, anywhere among the arguments) overrides a config field before the
+checkpoint loads, as the JAX ``tools/bench_ab.py`` does; the value is a
+Python literal.  To compare two commits on one card, unpack the other
 one with ``git archive`` into a directory ``.gitignore`` lists and run
 parent, change, change, parent within one call: host-side time varies
 between machines by more than most changes do.
 """
 
+import ast
+import dataclasses
 import os
 import sys
 import time
 
 
+def apply_overrides(cfg, pairs):
+    """``cfg`` with each ``group.field=value`` of ``pairs`` set; the value
+    is a Python literal (``ast.literal_eval``)."""
+    groups = {}
+    for pair in pairs:
+        path, sep, val = pair.partition("=")
+        group, _, field = path.partition(".")
+        if not (sep and group and field):
+            raise ValueError(f"override {pair!r} is not group.field=value")
+        groups.setdefault(group, {})[field] = ast.literal_eval(val)
+    for group, fields in groups.items():
+        cfg = dataclasses.replace(
+            cfg, **{group: dataclasses.replace(getattr(cfg, group), **fields)})
+    return cfg
+
+
+def split_overrides(argv):
+    """(the arguments without the ``--set`` pairs, the pairs)."""
+    rest, pairs = [], []
+    it = iter(argv)
+    for a in it:
+        if a == "--set":
+            pairs.append(next(it))
+        else:
+            rest.append(a)
+    return rest, pairs
+
+
 def main(argv) -> int:
+    argv, overrides = split_overrides(argv)
     root = os.path.abspath(argv[1])
     n_images = int(argv[2]) if len(argv) > 2 else 128
     repeats = int(argv[3]) if len(argv) > 3 else 3
@@ -47,8 +81,10 @@ def main(argv) -> int:
 
     build.build(["ir_chain"])
     cfg, model = load_model(
-        get_config("CVPPP"),
+        apply_overrides(get_config("CVPPP"), overrides),
         os.path.join(root, "assets", "synthetic_ckpt.msgpack"))
+    if overrides:
+        print("overrides:", overrides, flush=True)
     rng = np.random.default_rng(7)
     imgs = np.stack([make_scene(rng, 256, 256, hard=True)[0]
                      for _ in range(n_images)])

@@ -131,9 +131,9 @@ def main(argv) -> int:
         print("bench_ir_chain: CUDA is not available", file=sys.stderr)
         return 2
     from chip_smoke import (
-        MAIN_SHAPES, N_DECODE, chain_bound, cuda_ms, host_ms,
-        kernel_device_ms, smi_line,
+        MAIN_SHAPES, N_DECODE, cuda_ms, host_ms, kernel_device_ms, smi_line,
     )
+    from tpuseg_torch.utils.roofline import chain_bound
     from tpuseg_torch.cli.common import load_model
     from tpuseg_torch.kernels import build
     from tpuseg_torch.kernels import ir_chain as wrapper

@@ -80,9 +80,10 @@ def main(argv) -> int:
         print("bench_masked_softmax: CUDA is not available", file=sys.stderr)
         return 2
     from chip_smoke import (
-        cuda_ms, kernel_device_ms, smi_line, softmax_bound_ms,
-        softmax_cotangent, softmax_inputs,
+        cuda_ms, kernel_device_ms, smi_line, softmax_cotangent,
+        softmax_inputs,
     )
+    from tpuseg_torch.utils.roofline import softmax_bound_ms
     from tpuseg_torch.kernels import build
     from tpuseg_torch.kernels.masked_softmax import (
         masked_softmax_backward_plain, masked_softmax_plain,

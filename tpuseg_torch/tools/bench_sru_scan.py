@@ -123,9 +123,10 @@ def main(argv) -> int:
         print("bench_sru_scan: CUDA is not available", file=sys.stderr)
         return 2
     from chip_smoke import (
-        SRU_BWD_TOL, SRU_FWD_TOL, bytes_ms, cuda_ms, host_ms,
-        kernel_device_ms, smi_line, sru_case, within,
+        SRU_BWD_TOL, SRU_FWD_TOL, cuda_ms, host_ms, kernel_device_ms,
+        smi_line, sru_case, within,
     )
+    from tpuseg_torch.utils.roofline import bytes_ms
     from tpuseg_torch.kernels import build
     from tpuseg_torch.kernels.sru_scan import sru_scan_backward_plain
     from tpuseg_torch.nn.sru import sru_states
