@@ -205,9 +205,12 @@ split-row entry points, ``sru_scan``) from
     launches equal to that batch's counter), ``roofline`` at B=32 bf16 (the
     infer stage's counted ``ir_chain`` operations = its launches' rounds x
     a round's five calls' formula; every share <= ``SHARE_MAX`` %),
-    ``profile_stages --ks 1,32``, ``profile_components``,
-    ``profile_decode_scaling`` at B 32 and 128, and ``warmup`` (every
-    library reused: phase 1 built them).
+    ``profile_stages --ks 1,32 --trace`` (its traced batch of the tools'
+    scenes, through the same ``Predictor`` call as item 21's, held to the
+    same checks, its ``ir_chain`` launches 20 a round; both batches' idle
+    ms a round and a device event printed side by side),
+    ``profile_components``, ``profile_decode_scaling`` at B 32 and 128,
+    and ``warmup`` (every library reused: phase 1 built them).
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises: the
@@ -3505,14 +3508,28 @@ def _last_json(text: str):
     return json.loads(text[text.rfind("\n{") + 1:])
 
 
+def check_trace(tr, chain, want_chain):
+    """A summarised inference trace: device time, an idle share in [0, 1)
+    and ``want_chain`` ``ir_chain`` launches."""
+    if not tr["busy_ms"] > 0:
+        raise AssertionError(f"trace_summary: no device time: {tr}")
+    if not 0.0 <= tr["idle_share"] < 1.0:
+        raise AssertionError(f"idle share {tr['idle_share']} not in [0, 1)")
+    if chain != want_chain:
+        raise AssertionError(
+            f"the trace holds {chain} ir_chain launches, the batch made "
+            f"{want_chain}")
+
+
 def phase_measure(trace, smi):
     """The measurement tools of ``tpuseg_torch/tools`` on the card:
     ``trace_summary`` of phase 22's trace (busy time, idle share, buckets,
-    the gaps), ``roofline`` at B=32 bf16, ``profile_stages --ks 1,32``,
-    ``profile_components``, ``profile_decode_scaling`` at B 32 and 128 and
-    ``warmup``.  Raises when the trace has no device time, its idle share
-    lies outside [0, 1), its ``ir_chain`` launches differ from phase 22's
-    counter, the counted ``ir_chain`` operations are not the launches'
+    the gaps), ``roofline`` at B=32 bf16, ``profile_stages --ks 1,32
+    --trace``, ``profile_components``, ``profile_decode_scaling`` at B 32
+    and 128 and ``warmup``.  Raises when a trace has no device time, its
+    idle share lies outside [0, 1), its ``ir_chain`` launches differ from
+    the batch's (phase 22's counter; 20 a round of ``profile_stages``'
+    batch), the counted ``ir_chain`` operations are not the launches'
     rounds times a round's formula, a share reads over ``SHARE_MAX`` %, or
     ``warmup`` built anything (phase 1 built every library)."""
     from tpuseg_torch.tools import (
@@ -3544,14 +3561,7 @@ def phase_measure(trace, smi):
             f"host: {g['host']}")
     log("    top: " + "; ".join(f"{t['name'][:60]} x{t['count']} "
                                 f"{t['ms']:.2f} ms" for t in tr["top"][:8]))
-    if not tr["busy_ms"] > 0:
-        raise AssertionError(f"trace_summary: no device time: {tr}")
-    if not 0.0 <= tr["idle_share"] < 1.0:
-        raise AssertionError(f"idle share {tr['idle_share']} not in [0, 1)")
-    if chain != trace["ir_chain_launches"]:
-        raise AssertionError(
-            f"the trace holds {chain} ir_chain launches, phase 22 counted "
-            f"{trace['ir_chain_launches']}")
+    check_trace(tr, chain, trace["ir_chain_launches"])
     out["trace"] = {k: tr[k] for k in ("window_ms", "busy_ms", "device_ms",
                                        "idle_share", "buckets", "gaps",
                                        "n_gaps", "idle_by_host", "ops")}
@@ -3591,11 +3601,30 @@ def phase_measure(trace, smi):
     out["roofline_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    st = _last_json(_tool_output(profile_stages.main,
-                                 ["--ks", "1,32", "--iters", "2"]))
+    st = _last_json(_tool_output(profile_stages.main, [
+        "--ks", "1,32", "--iters", "2", "--trace",
+        os.path.join(os.path.dirname(trace["trace_dir"]), "stages_trace")]))
     log("  profile_stages (ms a batch): " + ", ".join(
         f"{k} {v:.2f}" for k, v in st["stages_ms_per_batch"].items())
         + f"; rounds {st['rounds']}")
+    st_tr, st_rounds = st["trace"], st["rounds"]["infer_k32"]
+    st_chain = sum(n for name, n in st_tr["launches"].items()
+                   if "ir_block" in name)
+    check_trace(st_tr, st_chain, 20 * st_rounds)
+    for name, t, rounds in (
+            ("phase 22's batch (phase 4's scenes)", tr,
+             trace["ir_chain_launches"] // 20),
+            ("profile_stages' batch (the tools' scenes)", st_tr, st_rounds)):
+        idle = t["window_ms"] - t["busy_ms"]
+        log(f"    {name}: {rounds} rounds, window {t['window_ms']:.2f} ms, "
+            f"busy {t['busy_ms']:.2f}, idle {idle:.2f} ms = share "
+            f"{t['idle_share']:.4f}; idle {idle / rounds:.2f} ms a round, "
+            f"{1e3 * idle / t['ops']:.2f} us and busy "
+            f"{1e3 * t['busy_ms'] / t['ops']:.2f} us a device event "
+            f"({t['ops']})")
+    out["stages_trace"] = {k: st_tr[k] for k in (
+        "window_ms", "busy_ms", "idle_share", "buckets", "n_gaps", "ops")}
+    out["stages_trace"]["rounds"] = st_rounds
     comp = _last_json(_tool_output(profile_components.main, ["--iters", "2"]))
     log("  profile_components (ms a batch): " + ", ".join(
         f"{k} {v:.2f}" for k, v in comp["ms_per_batch"].items()))

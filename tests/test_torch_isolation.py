@@ -343,4 +343,4 @@ def test_measurement_tools_default_to_cuda(name):
         pytest.skip("CUDA is present: the default device is usable here")
     mod = importlib.import_module(f"tpuseg_torch.tools.{name}")
     with pytest.raises(RuntimeError, match="CUDA"):
-        mod.main(["--model", "/nonexistent.msgpack"])
+        mod.main([])

@@ -34,6 +34,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from tpuseg.cli.common import build_model, init_variables
 from tpuseg.configs import cvppp_config as jax_cvppp_config
 from tpuseg.decoder import pyramid as jpy
+from tpuseg_torch.cli.common import load_model
 from tpuseg_torch.configs import cvppp_config
 from tpuseg_torch.decoder import pyramid as tpy
 from tpuseg_torch.kernels.ir_chain import ir_chain_plain
@@ -380,6 +381,20 @@ def test_decode_counts_the_same_on_either_route(pair):
     assert unwrapped.flops == plain.flops
 
 
+def test_ops_seconds_rates_the_chain_at_its_route():
+    """The ``ir_chain`` kernel's operations at its route's matrix rate
+    (bf16 tensor cores; float32 as 3xTF32), the rest at the stage's."""
+    peaks = rl.card_peaks("NVIDIA H100 80GB HBM3")
+    c = rl.Count()
+    c.add_kernel("ir_chain", 600, 0)
+    c.flops += 400
+    assert rl.ops_seconds(c, "bfloat16", peaks) == pytest.approx(1000 / 989e12)
+    assert rl.ops_seconds(c, "float32", peaks) == pytest.approx(
+        600 / (494.7e12 / 3) + 400 / 67e12)
+    assert rl.ops_seconds(rl.Count(flops=400), "float32",
+                          peaks) == pytest.approx(400 / 67e12)
+
+
 def test_card_peaks_by_name():
     assert rl.card_peaks("NVIDIA H100 80GB HBM3") == {
         "bfloat16": 989e12, "tf32": 494.7e12, "float32": 67e12,
@@ -537,9 +552,7 @@ def test_profile_stages_on_the_cpu(capsys):
 def test_profile_components_on_the_cpu(capsys):
     from tpuseg_torch.tools import profile_components
 
-    assert profile_components.main(
-        SMALL + ["--iters", "1", "--set", "model.n_filters=8",
-                 "--model", ""]) == 0
+    assert profile_components.main(SMALL + ["--iters", "1"]) == 0
     r = _json_tail(capsys.readouterr().out)
     assert {"batch", "dtype", "ms_per_batch", "ms_per_image"} <= set(r)
     assert set(r["ms_per_batch"]) == {"stem", "s_sp", "attend",
@@ -552,7 +565,7 @@ def test_profile_decode_scaling_on_the_cpu(capsys):
 
     assert profile_decode_scaling.main(
         ["--device", "cpu", "--res", "64", "--batches", "2,4", "--iters",
-         "1", "--set", "model.n_filters=8", "--model", ""]) == 0
+         "1"]) == 0
     r = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(r) == {"device", "decode_bf16_b2", "decode_bf16_b4",
                       "decode_f32_b2", "decode_f32_b4"}
@@ -585,7 +598,7 @@ def test_ab_infer_overrides():
                                  ["decoder.extract_group=__import__('os')"])
     with pytest.raises(ValueError, match="group.field=value"):
         ab_infer.apply_overrides(cvppp_config(), ["extract_group=2"])
-    args = type("A", (), dict(device="cpu", set=pairs[:1], res=64,
-                              model=""))()
-    _, cfg, model = stages.load(args)
-    assert cfg.decoder.extract_group == 2 and cfg.data.image_height == 64
+    # as ab_infer.main loads: the overrides applied before the checkpoint
+    cfg, _ = load_model(ab_infer.apply_overrides(cvppp_config(), pairs[:1]),
+                        stages.CKPT)
+    assert cfg.decoder.extract_group == 2

@@ -15,8 +15,8 @@ with the checkpoint's weights, cast for inference (no subtraction games):
                     (``decoder/pyramid.py::AttenDecoder.transform_skips``)
   decode1         : one pyramid decode (5 levels) from transformed skips
                     (``AttenDecoder.decode``; its chains run ``ir_chain``)
-  full_infer      : the whole batch (``tools/stages.py::infer``) on
-                    synthetic images
+  full_infer      : the whole batch through the ``Predictor``
+                    (``tools/stages.py::batch``) on synthetic images
 Each is the median of 3 runs of ``--iters`` calls timed with CUDA events
 after a warm-up (the host clock with ``--device cpu``).  Prints the report
 as JSON, with the JAX tool's keys.
@@ -66,7 +66,7 @@ def components(s: stages.Setup, iters: int) -> dict:
     feats, sem, point = pyramid_inputs(b, h, w, cfg.model.n_filters, dt, dev)
     x_dec = feats[0]
     ms = {}
-    with s.compute():
+    with s.pred._compute():
         ms["stem"] = timer(lambda: model.ins_stem(x_dec), dev, iters)
         encode = model.ins_stem(x_dec)
         ms["s_sp"] = timer(lambda: dec.s_sp(encode, sem), dev, iters)
@@ -78,7 +78,7 @@ def components(s: stages.Setup, iters: int) -> dict:
         skips_t = bone.transform_skips(feats)
         ms["decode1"] = timer(lambda: bone.decode(point, skips_t, sem), dev,
                               iters)
-    ms["full_infer"] = timer(lambda: stages.infer(s), dev,
+    ms["full_infer"] = timer(lambda: stages.batch(s.pred, s.x), dev,
                              max(iters // 2, 3))
     return ms
 

@@ -2,7 +2,7 @@
 (port of ``tools/profile_decode_scaling.py``)
 
     python -m tpuseg_torch.tools.profile_decode_scaling [--batches
-        32,64,128,256] [--iters 6] [--device cpu]
+        32,64,128,256] [--iters 6] [--res 256] [--device cpu]
 
 If decode(B * G) is well under G x decode(B), folding G glimpses of an
 extraction round into the batch wins.  Times one ``AttenDecoder.decode``
@@ -31,7 +31,8 @@ from tpuseg_torch.tools.profile_components import pyramid_inputs, timer
 
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser()
-    stages.add_model_args(ap)
+    ap.add_argument("--res", type=int, default=256)
+    ap.add_argument("--device", default="cuda")
     ap.add_argument("--batches", default="32,64,128,256")
     ap.add_argument("--iters", type=int, default=6)
     args = ap.parse_args(argv)

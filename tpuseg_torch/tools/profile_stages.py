@@ -8,8 +8,8 @@ Times, with CUDA events after a warm-up (``tools/stages.py``):
   preprocess : uint8 -> the 21 standardised channels
   semantic   : preprocess + UNet backbone + SE + semantic head
   infer_k{k} : the full path at the instance cap k, for each k of ``--ks``
-               (``ReSeg.infer_prep(max_instances=k)`` and the extraction
-               rounds) — the slope over k is the cost of a glimpse slot,
+               (a ``Predictor(max_instances=k)`` batch, as ``pred_list``
+               runs it) — the slope over k is the cost of a glimpse slot,
                the k -> 0 intercept minus ``semantic`` the attend + skip
                transforms + conv1 partials.
 Derived, under the JAX tool's keys: ``per_slot_extract``,
@@ -52,10 +52,10 @@ def trace_batch(s: stages.Setup, trace_dir: str) -> dict:
     from tpuseg_torch.tools import trace_summary
     from tpuseg_torch.utils.tracing import annotate, trace_context
 
-    stages.infer(s)  # warm-up
+    stages.batch(s.pred, s.x)  # warm-up
     with trace_context(trace_dir):
         with annotate("predict_batch"):
-            stages.infer(s)
+            stages.batch(s.pred, s.x)
     path = trace_summary.trace_path(trace_dir)
     buckets = [trace_summary.bucket(spec) for spec in INFER_BUCKETS]
     r = trace_summary.summarize(trace_summary.load_events(path), buckets,
@@ -82,9 +82,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     ks = [int(k) for k in args.ks.split(",")]
     rounds = {}
     for k in ks:
-        ms[f"infer_k{k}"] = stages.time_ms(lambda: stages.infer(s, k), s.dev,
-                                           args.iters)
-        rounds[f"infer_k{k}"] = stages.infer(s, k)[3]
+        pred = s.predictor(k)
+        ms[f"infer_k{k}"] = stages.time_ms(lambda: stages.batch(pred, s.x),
+                                           s.dev, args.iters)
+        rounds[f"infer_k{k}"] = stages.batch(pred, s.x)
     if len(ks) >= 2:
         k_lo, k_hi = ks[0], ks[-1]
         slope = (ms[f"infer_k{k_hi}"] - ms[f"infer_k{k_lo}"]) / (k_hi - k_lo)

@@ -15,17 +15,19 @@ the k=32 cap; with ``--train`` also the 256x256 B=8 bf16 train step of
 2. times the stage with CUDA events after a warm-up (``--iters`` runs;
    bf16, or float32 with TF32 off under ``--f32``);
 3. reports GFLOP, GB, FLOP/byte, ms, TFLOP/s, the share of the card's peak
-   FLOP rate for the stage's compute type (``pct_mxu_peak``, the JAX
-   tool's key), HBM GB/s and the share of the HBM peak, the least time the
-   card could take (``bound_ms``: the larger of FLOPs over the peak and
-   bytes over the HBM rate), which of the two bounds it (``bound_by``) and
+   FLOP rate (``pct_mxu_peak``, the JAX tool's key: the operations' least
+   time at the peaks over the time, the ``ir_chain`` kernel's at its
+   route's matrix rate and the rest at the stage's compute type's,
+   ``utils/roofline.py::ops_seconds``), HBM GB/s and the share of the HBM
+   peak, the least time the card could take (``bound_ms``: the larger of
+   that operations time and bytes over the HBM rate), which of the two bounds it (``bound_by``) and
    ``bound_ms`` over the time (``pct_roofline``), with the kernel calls
    and launches of the counted run.
 
 The peaks are the H100 SXM data sheet's (``utils/roofline.py::
 card_peaks``), chosen by the card's name; any other card raises.  The
 card's name and power limit are printed beside them.  With ``--device
-cpu`` (small configs: ``--res``, ``--set``) it gives the counts, the CPU's
+cpu`` (a small batch: ``--batch``, ``--res``) it gives the counts, the CPU's
 ms and no share.  Writes the rows as JSON to ``--out`` (by default
 ``tpuseg_torch_roofline.json`` under the temporary directory); the repo's
 ``ROOFLINE.json`` and PERF.md are the JAX package's records and are not
@@ -64,11 +66,11 @@ def row(name: str, c: rl.Count, ms: float, peaks: Optional[Dict],
          "ops": c.ops, "kernels": c.kernels, **extra}
     if peaks:
         s = ms / 1e3
-        flops_s = c.flops / peaks[dtype]
+        flops_s = rl.ops_seconds(c, dtype, peaks)
         bytes_s = c.bytes / peaks["bytes"]
         r.update(
             tflops=c.flops / s / 1e12,
-            pct_mxu_peak=100 * c.flops / s / peaks[dtype],
+            pct_mxu_peak=100 * flops_s / s,
             hbm_gbs=c.bytes / s / 1e9,
             pct_hbm_peak=100 * c.bytes / s / peaks["bytes"],
             bound_ms=1e3 * max(flops_s, bytes_s),
@@ -136,13 +138,13 @@ def run(args) -> List[Dict]:
         ("preprocess (21-ch)", lambda: stages.preprocess(s),
          "elementwise: bandwidth-bound"),
         ("semantic (pre+UNet+head)", lambda: stages.semantic(s), ""),
-        (f"full infer, k={k} cap", lambda: stages.infer(s, k),
+        (f"full infer, k={k} cap", lambda: stages.batch(s.pred, s.x),
          "production pred_list program"),
     ):
         fn()  # warm-up (cuDNN plans, allocator)
         c, out, launches = counted(fn)
         ms = stages.time_ms(fn, s.dev, args.iters, warmup=0)
-        extra = {"rounds": out[3]} if isinstance(out, tuple) else {}
+        extra = {"rounds": out} if isinstance(out, int) else {}
         rows.append(row(name, c, ms, peaks, dtype, note, launches=launches,
                         **extra))
         print(json.dumps(rows[-1]), flush=True)

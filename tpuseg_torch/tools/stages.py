@@ -2,17 +2,18 @@
 
 Counterpart of what the JAX tools share (``bench._build``,
 ``bench._synthetic_images`` and their jitted stage functions): the CVPPP
-model from the committed checkpoint (``cli/common.py::load_model``), cast
-for inference in bfloat16 (float32 with ``--f32``, TF32 off), a batch of
-``make_scene`` images (seed 0, not hard, as the JAX bench draws them), and
-the stages:
+model from the committed checkpoint (``cli/common.py::load_model``), a
+``Predictor`` for it in bfloat16 (float32 with ``--f32``, TF32 off), a
+batch of ``make_scene`` images (seed 0, not hard, as the JAX bench draws
+them), and the stages:
 
 - ``preprocess``: uint8 (B, H, W, 3) -> the 21 standardised channels,
   NCHW channels_last (``Predictor._standardize``);
 - ``semantic``: preprocess + UNet + SE + semantic head, argmax to uint8;
-- ``infer(k)``: ``ReSeg.infer_prep(max_instances=k)`` and the extraction
-  rounds (at most ceil(k / extract_group), ending when every sample is
-  done) -> fg, id map and counts, as ``Predictor`` runs a batch.
+- ``batch(pred)``: one batch through ``Predictor.predict_batch_packed``,
+  the call ``pred_list`` makes, at the predictor's instance cap
+  (:meth:`Setup.predictor`); its rounds are the change in
+  ``Predictor.rounds_run``.
 
 :func:`time_ms` times a call with CUDA events after a warm-up on the card
 and with the host clock on the CPU.  Every tool runs on the card unless
@@ -23,11 +24,12 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import os
 import sys
 import time
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -36,9 +38,8 @@ from tpuseg_torch import resolve_device
 from tpuseg_torch.cli.common import load_model
 from tpuseg_torch.configs import Config
 from tpuseg_torch.data.synthetic import make_scene
-from tpuseg_torch.runtime.predict import Predictor, tf32_off
+from tpuseg_torch.runtime.predict import Predictor
 from tpuseg_torch.settings import get_config
-from tpuseg_torch.tools.ab_infer import apply_overrides
 from tpuseg_torch.utils.checkpoint_io import load_stop_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -51,34 +52,46 @@ def add_model_args(p: argparse.ArgumentParser, batch: int = 32) -> None:
     p.add_argument("--f32", action="store_true")
     p.add_argument("--res", type=int, default=256,
                    help="square input size (the model's: 256)")
-    p.add_argument("--model", default=CKPT,
-                   help="checkpoint (a missing path: seeded random init)")
-    p.add_argument("--set", action="append", default=[],
-                   help="group.field=value config override")
     p.add_argument("--device", default="cuda")
 
 
 @dataclasses.dataclass
 class Setup:
     cfg: Config
-    model: torch.nn.Module  # ReSeg, cast for inference
+    base: torch.nn.Module   # ReSeg, float32, as loaded
     dev: torch.device
     dtype: torch.dtype
     x: torch.Tensor         # (B, H, W, 3) uint8 on ``dev``
     stop: Optional[tuple]
+    preds: Dict[int, Predictor] = dataclasses.field(default_factory=dict)
 
     @property
     def batch(self) -> int:
         return self.x.shape[0]
 
-    def compute(self):
-        """The numerics of the setup's dtype around a model call."""
-        return (tf32_off() if self.dtype == torch.float32
-                else contextlib.nullcontext())
-
     @property
     def dtype_name(self) -> str:
         return "f32" if self.dtype == torch.float32 else "bf16"
+
+    def predictor(self, k: Optional[int] = None) -> Predictor:
+        """The predictor at the instance cap ``k`` (the config's
+        ``max_n_objects`` when None), on a copy of the weights, made once."""
+        k = k or self.cfg.data.max_n_objects
+        if k not in self.preds:
+            self.preds[k] = Predictor(
+                self.cfg, copy.deepcopy(self.base), batch_size=self.batch,
+                max_instances=k, stop_params=self.stop, device=self.dev,
+                dtype=self.dtype)
+        return self.preds[k]
+
+    @property
+    def pred(self) -> Predictor:
+        return self.predictor()
+
+    @property
+    def model(self) -> torch.nn.Module:
+        """The model at the cap, cast for inference."""
+        return self.pred.model
 
 
 def synthetic_images(n: int, h: int, w: int, seed: int = 0) -> np.ndarray:
@@ -88,23 +101,21 @@ def synthetic_images(n: int, h: int, w: int, seed: int = 0) -> np.ndarray:
 
 def load(args):
     """(device, cfg, float32 model) from the parsed arguments: the device
-    checked first, the overrides applied before the checkpoint loads."""
+    checked first, then the committed checkpoint at ``--res``."""
     dev = resolve_device(args.device)
-    cfg = apply_overrides(get_config("CVPPP"), args.set)
+    cfg = get_config("CVPPP")
     cfg = cfg.replace(data=dataclasses.replace(
         cfg.data, image_height=args.res, image_width=args.res))
     with contextlib.redirect_stdout(sys.stderr):  # stdout: the report only
-        cfg, model = load_model(cfg, args.model)
+        cfg, model = load_model(cfg, CKPT)
     return dev, cfg, model
 
 
-def setup(args, dtype: Optional[torch.dtype] = None) -> Setup:
-    """The model cast for inference on the device (``dtype``, or bf16 /
-    ``--f32``) and ``--batch`` synthetic images there."""
+def setup(args) -> Setup:
+    """The float32 model, ``--batch`` synthetic images on the device, and
+    the predictors made from them in bf16 (``--f32``: float32)."""
     dev, cfg, model = load(args)
-    if dtype is None:
-        dtype = torch.float32 if args.f32 else torch.bfloat16
-    model = model.to(dev).to_inference(dtype)
+    dtype = torch.float32 if args.f32 else torch.bfloat16
     images = synthetic_images(args.batch, args.res, args.res)
     return Setup(cfg, model, dev, dtype, torch.from_numpy(images).to(dev),
                  load_stop_params())
@@ -116,25 +127,17 @@ def preprocess(s: Setup) -> torch.Tensor:
 
 @torch.no_grad()
 def semantic(s: Setup) -> torch.Tensor:
-    with s.compute():
+    with s.pred._compute():
         probs = s.model.semantic(preprocess(s))
     return probs.argmax(dim=1).to(torch.uint8)
 
 
-@torch.no_grad()
-def infer(s: Setup, k: Optional[int] = None):
-    """(fg uint8, idmap uint8, counts int32, rounds) of one batch at the
-    instance cap ``k`` (the config's ``max_n_objects`` when None)."""
-    k = k or s.cfg.data.max_n_objects
-    group = max(int(s.cfg.decoder.extract_group), 1)
-    with s.compute():
-        sem_probs, sem_mask, budget, score, partials = s.model.infer_prep(
-            preprocess(s), max_instances=k)
-        idmap, counts, _, rounds = s.model.decoder.extract_rounds(
-            sem_mask, score, partials, max_instances=k, count_budget=budget,
-            n_rounds=-(-k // group), stop_params=s.stop, sync_rounds=True)
-    return (sem_probs.argmax(dim=1).to(torch.uint8), idmap.to(torch.uint8),
-            counts.to(torch.int32), rounds)
+def batch(pred: Predictor, x: torch.Tensor) -> int:
+    """One batch through ``pred`` as ``pred_list`` runs it (packed masks
+    and counts left on the device); the extraction rounds it ran."""
+    before = pred.rounds_run
+    pred.predict_batch_packed(x)
+    return pred.rounds_run - before
 
 
 def time_ms(fn: Callable, dev: torch.device, iters: int,

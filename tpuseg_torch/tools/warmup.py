@@ -60,9 +60,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--batchsizes", default="16,32")
     ap.add_argument("--res", type=int, default=256)
     ap.add_argument("--f32", action="store_true")
-    ap.add_argument("--model", default=stages.CKPT)
-    ap.add_argument("--set", action="append", default=[],
-                    help="group.field=value config override")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)

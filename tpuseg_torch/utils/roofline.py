@@ -78,6 +78,17 @@ def card_peaks(name: str) -> Dict[str, float]:
             "bytes": PEAK_BYTES}
 
 
+def ops_seconds(c: "Count", dtype_name: str, peaks: Dict[str, float]) -> float:
+    """The least time for ``c``'s operations at ``peaks`` (:func:`card_peaks`):
+    the ``ir_chain`` kernel's at the matrix rate of its route (bf16 on the
+    tensor cores; float32 as 3xTF32, a third of the TF32 rate), every other
+    operation at the rate of ``dtype_name`` (bfloat16 or float32)."""
+    chain = c.kernels.get("ir_chain", {}).get("flops", 0)
+    matmul = (peaks["tf32"] / 3 if dtype_name == "float32"
+              else peaks[dtype_name])
+    return chain / matmul + (c.flops - chain) / peaks[dtype_name]
+
+
 def card_line() -> str:
     """The first card's name and power limit as ``nvidia-smi
     --query-gpu=name,power.limit --format=csv,noheader`` gives them (a
